@@ -1,12 +1,13 @@
-"""Heatmap → keypoint decoding.
+"""Heatmap → keypoint decoding and heatmap resizing.
 
-Port of ``dahpe_tpu/core/decode.py:get_max_preds`` (the reference's numpy
-``utils/keypoint_detection.py:7-35``).
+Port of ``dahpe_tpu/core/decode.py``: ``get_max_preds`` (the reference's
+numpy ``utils/keypoint_detection.py:7-35``) and ``upsample_bilinear``.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def get_max_preds(heatmaps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -25,3 +26,12 @@ def get_max_preds(heatmaps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     preds = torch.stack([px, py], dim=-1)  # (B, K, 2)
     mask = (maxvals > 0.0).to(torch.float32)[..., None]
     return preds * mask, maxvals[..., None]
+
+
+def upsample_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of ``(B, H, W, K)`` with ``align_corners=False``:
+    source coordinate ``(i + 0.5) * H_in / H_out - 0.5``, clamped at the
+    edges (the reference's ``nn.Upsample(mode='bilinear')``)."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1)

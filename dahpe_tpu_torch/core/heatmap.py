@@ -1,13 +1,17 @@
-"""Gaussian heatmap targets and peak extraction.
+"""Gaussian heatmap targets, peak extraction and pseudo-labels.
 
-Port of ``dahpe_tpu/core/heatmap.py`` (the serving/validation half). A
-target heatmap for a peak ``(mu_x, mu_y)`` is
+Port of ``dahpe_tpu/core/heatmap.py``: targets, peaks and the pseudo-label
+(GT / ground-false) functions of the disparity losses. A target heatmap for a
+peak ``(mu_x, mu_y)`` is
 
     g[y, x] = exp(-((x - mu_x)^2 + (y - mu_y)^2) / (2 sigma^2))
               if |x - mu_x| <= reach and |y - mu_y| <= reach else 0
 
 rendered by the CUDA kernel on the card (:mod:`dahpe_tpu_torch.ops.gaussian`)
 and by its plain PyTorch twin on the CPU. Heatmaps are ``(..., H, W, K)``.
+
+The GF functions below are the plain versions the fused pseudo-label kernel
+(:mod:`dahpe_tpu_torch.ops.pseudo_label`) is held against.
 """
 
 from __future__ import annotations
@@ -37,22 +41,25 @@ def render_gaussian(
     Args:
       mu: ``(..., K, 2)`` integer peak coordinates as ``(x, y)``.
       height, width: heatmap size.
-      valid: optional ``(..., K)`` mask; joints where it is zero/False render
-        as all-zero maps.
+      valid: optional ``(..., K)`` mask. A boolean mask renders the joints
+        where it is False as all-zero maps (the kernel's own mask); any other
+        dtype multiplies the maps, as the JAX function does for every mask.
 
     Returns:
       ``(..., H, W, K)`` float32 heatmaps.
     """
     *lead, k, _ = mu.shape
     mu = mu.reshape(-1, k, 2)
-    if valid is None:
-        valid = torch.ones(mu.shape[:2], dtype=torch.float32, device=mu.device)
+    if valid is not None and valid.dtype == torch.bool:
+        mask, factor = valid.reshape(-1, k).to(torch.float32), None
     else:
-        valid = valid.reshape(-1, k).to(torch.float32)
+        mask, factor = torch.ones(mu.shape[:2], dtype=torch.float32, device=mu.device), valid
     out = gaussian.render_gaussian(
-        mu, valid, height=height, width=width, sigma=sigma, reach=reach
-    )
-    return out.reshape(*lead, height, width, k)
+        mu, mask, height=height, width=width, sigma=sigma, reach=reach
+    ).reshape(*lead, height, width, k)
+    if factor is not None:
+        out = out * factor.to(torch.float32)[..., None, None, :]
+    return out
 
 
 def generate_target(
@@ -107,3 +114,60 @@ def peaks_from_heatmap(y: torch.Tensor) -> torch.Tensor:
     px = torch.where(keep, idx % w, 0).to(torch.int32)
     py = torch.where(keep, idx // w, 0).to(torch.int32)
     return torch.stack([px, py], dim=-1)
+
+
+def pseudo_label_gt(
+    y: torch.Tensor,
+    *,
+    scale: int = 1,
+    out_size: int | None = None,
+    sigma: float = 2.0,
+    window_factor: float = 3.0,
+    peaks: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Ground-truth pseudo heatmaps from a predicted heatmap.
+
+    Argmax-decode ``y (..., H, W, K)``, integer-divide the peaks by ``scale``
+    (1 / 2 / 4 for the 64 / 32 / 16 heads) and render the windowed Gaussian
+    at ``out_size``. ``peaks`` may be passed when the caller already decoded
+    ``y``. Gradients are not stopped here: callers pass ``y.detach()``.
+    """
+    *_, h, _, _ = y.shape
+    if out_size is None:
+        out_size = h // scale
+    if peaks is None:
+        peaks = peaks_from_heatmap(y)
+    reach = gaussian_window_reach(sigma, window_factor)
+    return render_gaussian(peaks // scale, out_size, out_size, sigma=sigma, reach=reach)
+
+
+def gf_union_others(gt: torch.Tensor) -> torch.Tensor:
+    """GF = clip(sum of the OTHER joints' Gaussians): ``(..., H, W, K)``."""
+    total = torch.sum(gt, dim=-1, keepdim=True)
+    return torch.clamp(total - gt, 0.0, 1.0)
+
+
+def gf_inverse(gt: torch.Tensor) -> torch.Tensor:
+    """GF = clip(1 - 10 * GT)."""
+    return torch.clamp(1.0 - gt * 10.0, 0.0, 1.0)
+
+
+def gf_union_minus(gt: torch.Tensor) -> torch.Tensor:
+    """GF = clip(clip(sum_k GT) - 10 * GT)."""
+    label_p = torch.clamp(torch.sum(gt, dim=-1, keepdim=True), 0.0, 1.0)
+    return torch.clamp(label_p - gt * 10.0, 0.0, 1.0)
+
+
+def fuse_and_normalize_gf(
+    gf: torch.Tensor, gt: torch.Tensor, fused_target: torch.Tensor | None
+) -> torch.Tensor:
+    """Optionally fuse a coarser head's heatmap into GF, then max-normalize.
+
+    With a fused target ``GF = clip(GF + target - 100 * GT)``; then every
+    (sample, joint) map is divided by its max, guarded by 1e-12 so an
+    all-zero map stays zero where the reference's division gives NaN.
+    """
+    if fused_target is not None:
+        gf = torch.clamp(gf + fused_target - gt * 100.0, 0.0, 1.0)
+    m = torch.amax(gf, dim=(-3, -2), keepdim=True)
+    return gf / torch.clamp(m, min=1e-12)

@@ -54,9 +54,11 @@ def pck_accuracy(
     b, h, w, _ = output.shape
     pred, _ = get_max_preds(output)
     gt, _ = get_max_preds(target)
-    norm = torch.ones((b, 2), dtype=output.dtype, device=output.device) * torch.tensor(
-        [h, w], dtype=output.dtype, device=output.device
-    ) / 10.0
+    # filled on the device: a tensor built from a host list is a copy that
+    # waits for the stream
+    norm = torch.stack([torch.full((b,), h / 10.0, dtype=output.dtype, device=output.device),
+                        torch.full((b,), w / 10.0, dtype=output.dtype, device=output.device)],
+                       dim=-1)
     dists = calc_dists(pred, gt, norm)
     acc = dist_acc(dists, thr)
     valid = acc >= 0

@@ -1,10 +1,17 @@
-"""Device-resident dataset store: validation batches with no host traffic.
+"""Device-resident dataset store: training and validation batches with no
+host traffic.
 
-Port of ``dahpe_tpu/data/device_store.py`` (the upload and the eval loader;
-the training sampler comes with the training path). The pre-decoded uint8
-crops of a split, with their keypoints, visibility and intrinsics, are
-uploaded to the card once; every eval batch is then a row gather, the
-ImageNet normalize and the Gaussian targets, all on the device.
+Port of ``dahpe_tpu/data/device_store.py`` for one device (per-rank sample
+shards come with the parallel slice). The pre-decoded uint8 crops of a
+split, with their keypoints, visibility and intrinsics, are uploaded to the
+card once. Every training batch is then
+
+    sample indices (a generator on the device) → flat-view row gather
+    → augmentation (``device_aug``) → Gaussian targets
+
+and every eval batch a row gather, the ImageNet normalize and the targets,
+all on the device. Sampling is without replacement within a batch and with
+replacement across batches, the DA trainer's infinite-iterator regime.
 """
 
 from __future__ import annotations
@@ -14,7 +21,12 @@ import torch
 
 from dahpe_tpu_torch import resolve_device
 from dahpe_tpu_torch.core.heatmap import generate_target
-from dahpe_tpu_torch.data.device_aug import IMAGENET_MEAN, IMAGENET_STD
+from dahpe_tpu_torch.data.device_aug import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    augment_batch,
+    draw_augment_params,
+)
 
 
 class DeviceDataStore:
@@ -61,12 +73,84 @@ class DeviceDataStore:
                 dst[start:stop].copy_(torch.from_numpy(src))
             if verbose and start // upload_chunk % 8 == 0:
                 print(f"device-store upload: {stop}/{n}", flush=True)
+        self._stream: torch.Generator | None = None  # seed_stream
 
     def nbytes(self) -> int:
         return sum(
             x.numel() * x.element_size()
             for x in (self.images, self.kps, self.vis, self.intr)
         )
+
+    def generator(self, seed: int) -> torch.Generator:
+        """A fresh random generator on the store's device."""
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def train_batch_from(self, idx: torch.Tensor, params: dict, *, image_size: int = 256,
+                         heatmap_size: int = 64, sigma: float = 2.0) -> dict:
+        """The training batch of rows ``idx`` under the augmentation draws
+        ``params`` (``device_aug.draw_augment_params``): gather, augment,
+        Gaussian targets. The image rows are gathered through a flat
+        ``(n, h*w*c)`` view, one contiguous row copy each."""
+        h, w, c = self.images.shape[1:]
+        img = self.images.view(self.n, h * w * c).index_select(0, idx).view(-1, h, w, c)
+        img, kp, _ = augment_batch(
+            img, self.kps.index_select(0, idx), self.intr.index_select(0, idx), params,
+            out_size=image_size,
+        )
+        target, weight = generate_target(
+            kp, self.vis.index_select(0, idx), (heatmap_size, heatmap_size),
+            (image_size, image_size), sigma=sigma,
+        )
+        return {"image": img, "target": target, "weight": weight}
+
+    def traced_batch_fn(self, batch_size: int, *, image_size: int = 256,
+                        heatmap_size: int = 64, rotation: float = 180.0,
+                        scale_range=(0.6, 1.3), sigma: float = 2.0):
+        """The batch producer ``generator -> batch``: ``batch_size`` rows
+        drawn without replacement (``torch.randperm`` on the generator),
+        their augmentation draws from the same generator, then
+        :meth:`train_batch_from`. Nothing is read back to the host."""
+        if not 0 < batch_size <= self.n:
+            raise ValueError(f"batch {batch_size} not in 1..{self.n} (store rows)")
+        cfg = dict(image_size=image_size, heatmap_size=heatmap_size, sigma=sigma)
+
+        def produce(generator: torch.Generator) -> dict:
+            idx = torch.randperm(self.n, generator=generator, device=self.device)[:batch_size]
+            params = draw_augment_params(generator, batch_size, size=self.raw_size,
+                                         rotation=rotation, scale_range=scale_range)
+            return self.train_batch_from(idx, params, **cfg)
+
+        return produce
+
+    def train_batch(self, generator_or_seed, batch_size: int, **cfg) -> dict:
+        """One training batch from a generator on the store's device, or from
+        a fresh one seeded with an int (``cfg``: :meth:`traced_batch_fn`'s)."""
+        g = generator_or_seed
+        if not isinstance(g, torch.Generator):
+            g = self.generator(g)
+        return self.traced_batch_fn(batch_size, **cfg)(g)
+
+    def seed_stream(self, seed_or_state) -> None:
+        """Start the store's sampling stream: an int seed, or a state that
+        :meth:`stream_data` returned (resume continues the same stream)."""
+        g = torch.Generator(device=self.device)
+        if isinstance(seed_or_state, torch.Tensor):
+            g.set_state(seed_or_state)
+        else:
+            g.manual_seed(int(seed_or_state))
+        self._stream = g
+
+    def stream_data(self) -> torch.Tensor | None:
+        """The sampling stream's generator state (a CPU byte tensor, for
+        checkpointing), or ``None`` before :meth:`seed_stream`."""
+        return None if self._stream is None else self._stream.get_state()
+
+    def next_train_batch(self, batch_size: int, **cfg) -> dict:
+        """The next training batch of the stream; the generator advances on
+        the device."""
+        if self._stream is None:
+            raise ValueError("call seed_stream(seed) before next_train_batch")
+        return self.traced_batch_fn(batch_size, **cfg)(self._stream)
 
     def eval_loader(self, batch_size: int, *, heatmap_size: int = 64,
                     sigma: float = 2.0) -> "_DeviceEvalLoader":

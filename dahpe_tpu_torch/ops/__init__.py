@@ -1,4 +1,5 @@
-"""Custom ops: the hand-written CUDA kernels and the GL gradient scaler.
+"""Custom ops: the hand-written CUDA kernels (Gaussian targets, Paeth
+rotation, fused pseudo-labels) and the GL gradient scaler.
 
 Importing this package builds nothing; each kernel builds at its first
 launch (``ops/_build.py``).

@@ -58,6 +58,38 @@ def _digest(paths: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
+def _start(name: str, sources: list[str]):
+    """``(lib_path, None)`` if the library is built, else ``(lib_path, job)``
+    with its ``nvcc`` running in the background."""
+    paths = [os.path.join(CSRC_DIR, s) for s in sources]
+    lib_path = os.path.join(BUILD_DIR, f"lib{name}-{_digest(paths)}.so")
+    if os.path.exists(lib_path):
+        return lib_path, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib_path}.tmp{os.getpid()}"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return lib_path, (proc, cmd, tmp, time.perf_counter())
+
+
+def _finish(name: str, lib_path: str, job) -> dict:
+    """Wait for a build that :func:`_start` began; move it into place."""
+    if job is None:
+        return {"built": False, "seconds": 0.0, "log": ""}
+    proc, cmd, tmp, t0 = job
+    stdout, stderr = proc.communicate()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {name}:\n"
+            f"{' '.join(cmd)}\n{stdout}\n{stderr}"
+        )
+    os.replace(tmp, lib_path)
+    return {"built": True, "seconds": seconds, "log": (stdout + stderr).strip()}
+
+
 def build(name: str, sources: list[str]) -> tuple[str, dict]:
     """Compile ``sources`` (file names under ``csrc/``) into
     ``build/kernels/lib<name>-<hash>.so`` unless that file exists.
@@ -65,26 +97,8 @@ def build(name: str, sources: list[str]) -> tuple[str, dict]:
     Returns the library path and a record of the build: whether it ran, its
     seconds, and ``nvcc``'s register/shared-memory report.
     """
-    paths = [os.path.join(CSRC_DIR, s) for s in sources]
-    lib_path = os.path.join(BUILD_DIR, f"lib{name}-{_digest(paths)}.so")
-    if os.path.exists(lib_path):
-        return lib_path, {"built": False, "seconds": 0.0, "log": ""}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.tmp{os.getpid()}"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {name}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
-    log = (proc.stdout + proc.stderr).strip()
-    return lib_path, {"built": True, "seconds": seconds, "log": log}
+    lib_path, job = _start(name, sources)
+    return lib_path, _finish(name, lib_path, job)
 
 
 def load(name: str, sources: list[str]) -> ctypes.CDLL:
@@ -93,6 +107,16 @@ def load(name: str, sources: list[str]) -> ctypes.CDLL:
         path, record = build(name, sources)
         _loaded[name] = (ctypes.CDLL(path), record)
     return _loaded[name][0]
+
+
+def load_all(libraries: dict[str, list[str]]) -> None:
+    """Load every library of ``{name: sources}``, building the missing ones
+    with one ``nvcc`` each, all started together."""
+    jobs = {name: _start(name, sources)
+            for name, sources in libraries.items() if name not in _loaded}
+    for name, (lib_path, job) in jobs.items():
+        record = _finish(name, lib_path, job)
+        _loaded[name] = (ctypes.CDLL(lib_path), record)
 
 
 def build_record(name: str) -> dict:

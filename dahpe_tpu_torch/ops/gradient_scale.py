@@ -13,17 +13,19 @@ import torch
 class _GradientScale(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, coeff):
-        ctx.save_for_backward(torch.as_tensor(coeff, dtype=x.dtype, device=x.device))
+        # a host float stays a host float: copying it to the card would make
+        # the copy wait for the stream
+        ctx.coeff = coeff.to(x.dtype) if isinstance(coeff, torch.Tensor) else float(coeff)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        (coeff,) = ctx.saved_tensors
-        return g * coeff, None
+        return g * ctx.coeff, None
 
 
 def gradient_scale(x: torch.Tensor, coeff) -> torch.Tensor:
-    """Identity forward; backward scales ``dx`` by ``coeff`` (no grad to coeff)."""
+    """Identity forward; backward scales ``dx`` by ``coeff`` (no grad to
+    coeff): a host float, or a tensor on the CPU (0-d) or beside ``x``."""
     return _GradientScale.apply(x, coeff)
 
 

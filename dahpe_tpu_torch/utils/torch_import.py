@@ -13,6 +13,9 @@ weights is a mechanical transform (the port's own copy of the logic of
 
 The input is a ``{"params", "batch_stats"}`` tree of arrays (numpy, or
 anything ``numpy.asarray`` accepts); nothing of JAX is imported here.
+:func:`da_state_from_jax` carries a whole DA training state the same way:
+weights, BN statistics, the per-partition momentum, the step and the EMA, so
+a port run continues a JAX run mid-training.
 """
 
 from __future__ import annotations
@@ -96,3 +99,46 @@ def load_pth(path: str, key: str | None = "model") -> dict[str, torch.Tensor]:
     if key is not None and isinstance(obj, dict) and key in obj:
         obj = obj[key]
     return {k: v.detach() for k, v in obj.items()}
+
+
+def _momentum_trace(opt_state) -> Mapping:
+    """The trace tree of one partition's optax state: ``torch_sgd`` is
+    ``chain(add_decayed_weights, trace)``, whose state is a tuple holding a
+    ``TraceState(trace=...)``."""
+    for part in opt_state:
+        if hasattr(part, "trace"):
+            return part.trace
+    raise ValueError(f"no momentum trace in optimizer state {type(opt_state).__name__}")
+
+
+def da_state_from_jax(state, model: torch.nn.Module, *, device=None, momentum: float = 0.9,
+                      weight_decay: float = 1e-4):
+    """Carry a ``dahpe_tpu`` ``DATrainState`` (its leaves as numpy arrays)
+    into the port: ``model`` gets its params and BN stats, each partition's
+    SGD its optax ``trace`` as ``momentum_buffer``, and the returned
+    :class:`~dahpe_tpu_torch.train.da.DATrainState` its step and EMA.
+    ``model`` must be the port's counterpart of the JAX model."""
+    from dahpe_tpu_torch.train.da import create_da_state
+
+    model.load_state_dict(state_dict_from_jax(
+        {"params": state.params, "batch_stats": state.batch_stats}))
+    out = create_da_state(model, device=device, with_ema=state.ema_params is not None,
+                          momentum=momentum, weight_decay=weight_decay)
+    out.step = int(np.asarray(state.step))
+    named = dict(model.named_parameters())
+    for name, opt_state in state.opt.items():
+        buffers = state_dict_from_jax({"params": _momentum_trace(opt_state)})
+        opt = out.optimizers[name]
+        owned = {id(p) for group in opt.param_groups for p in group["params"]}
+        if {id(named[k]) for k in buffers} != owned:
+            raise ValueError(f"momentum of partition {name!r} does not cover its parameters")
+        for key, value in buffers.items():
+            p = named[key]
+            opt.state[p]["momentum_buffer"] = value.to(p.device)
+    if out.ema is not None:
+        ema = state_dict_from_jax(
+            {"params": state.ema_params, "batch_stats": state.ema_batch_stats})
+        with torch.no_grad():
+            for key, value in out.ema.items():
+                value.copy_(ema[key])
+    return out

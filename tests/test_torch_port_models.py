@@ -80,9 +80,12 @@ def model_pair(kind="bottleneck", *, image_size=64, seed=0):
     port's model carrying the same weights (eval mode, on the CPU)."""
     jmodel = jmodels.MultiHeadPoseResNet(backbone=jax_backbone(kind), num_keypoints=21)
     x0 = jnp.zeros((1, image_size, image_size, 3), jnp.float32)
-    variables = randomize_variables(
-        jmodel.init(jax.random.key(0), x0, train=False, gl_coeff=0.0), seed
+    # only the tree's shapes are used: tracing them is ~20x faster than an
+    # eager init on the CPU
+    shapes = jax.eval_shape(
+        lambda key: jmodel.init(key, x0, train=False, gl_coeff=0.0), jax.random.key(0)
     )
+    variables = randomize_variables(shapes, seed)
     model = models.MultiHeadPoseResNet(port_backbone(kind), num_keypoints=21)
     model.load_state_dict(state_dict_from_jax(variables))
     return jmodel, variables, model.eval()
