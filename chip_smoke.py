@@ -13,7 +13,10 @@ line, fail the run by raising:
 2. every CUDA kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with its time, the plain time and the
    least time the card could take (its bound): the Gaussian targets, the
-   Paeth rotation of the training producer and the fused pseudo-labels;
+   Paeth rotation of the training producer (uint8, and its float32 mode),
+   the fused pseudo-labels, and the rotation kernel's two uint16 modes (one
+   shear on either axis, the three-shear rotation) on the padded canvas of
+   the 288² store, with two identities between the modes;
 3. serving: ``MultiHeadPoseResNet(resnet101)`` at full width (256² frames,
    64² heatmaps, 21 joints) with seeded random weights answers uint8
    requests of 1, 8 and 32 frames through ``make_predict_fn``, checked
@@ -27,7 +30,16 @@ line, fail the run by raising:
    each kernel's launches per iteration checked; one iteration from the same
    weights and draws with the kernels and again with their plain versions
    must give bit-identical batches and agreeing losses and weights; then one
-   step of ``make_fused_pretrain_iteration`` (``PoseResNet(resnet101)``).
+   step of ``make_fused_pretrain_iteration`` (``PoseResNet(resnet101)``);
+6. the training CLI, ``dahpe_tpu_torch.cli.train.main``, at full width
+   (ResNet-101, 256²/64², batch 32, ``--device-store --with-ema``) on the
+   synthetic domains cut to 256 train and 64 val frames: a pretrain epoch
+   and a DA epoch with validation, EMA validation, a profiled iteration
+   and packed checkpoints; ``--max-steps N`` then ``--resume latest`` to
+   2N against a straight 2N run (cuDNN deterministic); ``cli.test`` on
+   ``best``; short runs in the host-fed ``--device-aug`` and PIL modes; the
+   kernel launches the iteration counts imply; and the save, restore and
+   drain-stall times of the full training state.
 
 Then one JSON line of kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -38,6 +50,8 @@ from __future__ import annotations
 import copy
 import ctypes
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -54,6 +68,9 @@ LABEL_SHAPES = [(64, 6, "union_minus", True, True), (32, 4, "inverse", True, Tru
                 (16, 3, "inverse", False, False)]
 LIBRARIES = {"render_gaussian": ["render_gaussian.cu"], "pseudo_label": ["pseudo_label.cu"],
              "rotate3": ["rotate3.cu"]}
+NO_LAUNCHES = {"render_gaussian": 0, "pseudo_labels": 0, "rotate3_fused": 0,
+               "rotate3_fused_f32": 0, "rotate3": 0, "shear": 0}
+PATH_KERNELS = ("render_gaussian", "pseudo_labels", "rotate3_fused")
 
 
 def line(tag: str, payload) -> None:
@@ -89,7 +106,7 @@ def host_ms(torch, fn, iters: int = 100) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-PORT_KERNELS = ("render_gaussian_kernel", "pseudo_labels_kernel", "rotate3_fused_kernel")
+PORT_KERNELS = ("render_gaussian_kernel", "pseudo_labels_kernel", "rotate3_kernel")
 
 
 def device_profile(torch, fn) -> dict:
@@ -98,33 +115,29 @@ def device_profile(torch, fn) -> dict:
     device time of each of the port's own kernels."""
     from torch.profiler import ProfilerActivity, profile
 
+    from dahpe_tpu_torch.utils.profiling import device_busy_us
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
+    busy, kernels = device_busy_us(prof.events())
+    if not kernels:
+        return {"device": "not measured (no CUDA events in the trace)"}
+    by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
             # summed under the name as printed, so kernels that share the
             # printed prefix add up instead of overwriting each other
             name = e.name[:60]
             by_name[name] = by_name.get(name, 0) + e.time_range.elapsed_us()
-    if not spans:
-        return {"device": "not measured (no CUDA events in the trace)"}
-    busy, last = 0, None
-    for a, b in sorted(spans):
-        a = a if last is None else max(a, last)
-        if b > a:
-            busy += b - a
-        last = b if last is None else max(last, b)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     ours = {k: sum(us for name, us in by_name.items() if k in name) / 1e3
             for k in PORT_KERNELS}
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-            "idle_share": 1 - busy / wall_us, "kernels": len(spans),
+            "idle_share": 1 - busy / wall_us, "kernels": kernels,
             "top_ms": {name: us / 1e3 for name, us in top}, "port_kernels_ms": ours}
 
 
@@ -218,21 +231,38 @@ def phase_gaussian(torch, gaussian):
     return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
-def rotation_bound_ms(b, size, channels):
-    """Least time for the rotation: the uint8 input read once and the
-    float32 output written once, against its work counted at the float32
-    rate (the only CUDA-core peak used here): per pixel 7 shear
-    lines (subtract, multiply, floor, subtract, multiply, round, clamp) and
-    per channel 7 blends (2 multiplies, 2 adds, a shift) and the 1/256 scale."""
+def rotation_bound_ms(b, size, channels, in_bytes=1):
+    """Least time for the rotation: the input (uint8, or float32 with
+    ``in_bytes=4``) read once and the float32 output written once, against
+    its work counted at the float32 rate (the only CUDA-core peak used
+    here): per pixel 7 shear lines (subtract, multiply, floor, subtract,
+    multiply, round, clamp) and per channel 7 blends (2 multiplies, 2 adds, a
+    shift) and the 1/256 scale; a float input adds its conversion (multiply,
+    round, 2 clamps) on each of the 8 taps."""
     pixels = b * size * size
-    bytes_ms = (pixels * channels * (1 + 4) + b * 12) / HBM_BYTES_PER_S * 1e3
-    ops_ms = pixels * (7 * 7 + channels * (7 * 5 + 1)) / FP32_OPS_PER_S * 1e3
+    bytes_ms = (pixels * channels * (in_bytes + 4) + b * 12) / HBM_BYTES_PER_S * 1e3
+    per_channel = 7 * 5 + 1 + (8 * 4 if in_bytes == 4 else 0)
+    ops_ms = pixels * (7 * 7 + channels * per_channel) / FP32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def u16_bound_ms(shape, shears):
+    """Least time for ``shears`` (1 or 3) shears of a (B, C, H, W) uint16
+    canvas: read once and written once, against 7 operations per shear line
+    of a pixel and 5 per blend of a channel at the float32 rate."""
+    b, c, h, w = shape
+    pixels = b * h * w
+    bytes_ms = (2 * pixels * c * 2 + b * 8) / HBM_BYTES_PER_S * 1e3
+    lines, blends = (7, 7) if shears == 3 else (1, 1)
+    ops_ms = pixels * (lines * 7 + c * blends * 5) / FP32_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
 def phase_rotate(torch, shear, device_aug):
     """Kernel 3 at the training producer's shape: one batch of 288² uint8
-    crops, angles over all four quarter-turns and |r| = 45°."""
+    crops, angles over all four quarter-turns and |r| = 45°; then its
+    float32 mode on the same crops as integral floats (it must equal the
+    uint8 mode) and on non-integral floats."""
     launches_before = shear.launches
     g = torch.Generator(device="cuda").manual_seed(5)
     images = torch.randint(0, 256, (BATCH, RAW, RAW, 3), dtype=torch.uint8, device="cuda",
@@ -257,7 +287,107 @@ def phase_rotate(torch, shear, device_aug):
            "bound_by": bound_by, "library_ms": None, "call_ms": host_ms(torch, kernel)}
     line("phase 2 rotate3 kernel vs plain (torch.equal)",
          dict(row, launches=shear.launches - launches_before))
-    return row
+
+    # the float32 mode: integral floats give the uint8 mode's result, and
+    # non-integral ones the plain version's rounding
+    f32_before = shear.fused_f32_launches
+    as_float = images.to(torch.float32)
+    frac = torch.rand(images.shape, device="cuda", generator=g) * 255.0
+    got_int = shear.rotate3_fused_cuda(as_float, a, b, quarter, **kw)
+    got_frac = shear.rotate3_fused_cuda(frac, a, b, quarter, **kw)
+    ref_frac = shear.rotate3_fused_plain(frac, a, b, quarter, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got_int, got):
+        raise AssertionError("rotate3 float32 mode: integral floats differ from the uint8 mode")
+    if not torch.equal(got_frac, ref_frac):
+        raise AssertionError(f"rotate3 float32 mode: kernel differs from plain, max abs "
+                             f"{float((got_frac - ref_frac).abs().max())}")
+    # the dispatcher launches the float mode for float crops on the card
+    if not torch.equal(shear.rotate3_fused(frac, a, b, quarter, **kw), got_frac):
+        raise AssertionError("rotate3_fused on float32 crops differs from the float32 mode")
+    kernel = lambda: shear.rotate3_fused_cuda(frac, a, b, quarter, **kw)  # noqa: E731
+    plain = lambda: shear.rotate3_fused_plain(frac, a, b, quarter, **kw)  # noqa: E731
+    bound_ms, bound_by = rotation_bound_ms(BATCH, RAW, 3, in_bytes=4)
+    row_f32 = {"shape": [BATCH, RAW, RAW, 3], "dtype": "float32", "max_abs_err": 0.0,
+               "ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain, iters=10, warmup=2),
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+               "equals_uint8_mode_on_integral_input": True}
+    line("phase 2 rotate3 float32 mode vs plain (torch.equal)",
+         dict(row_f32, launches=shear.fused_f32_launches - f32_before))
+    return row, row_f32
+
+
+def phase_shears(torch, shear):
+    """Kernels 5 and 4, the rotation kernel's uint16 modes, at the padded
+    canvas of the 288² store (32, 3, 412, 412) with the path's shift bounds,
+    full-range values and slopes up to ±tan(22.5°) / ±sin(45°): each shear
+    axis and the three-shear rotation against their plain versions, then
+    ``rotate3 == shear(shear(shear()))`` and ``crop(rotate3(pad(to_fixed(x))))
+    / 256 == rotate3_fused(x)`` on the card."""
+    pad, kmax_a, kmax_b = shear.rotation_geometry(RAW)
+    n = RAW + 2 * pad
+    shape = (BATCH, 3, n, n)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    canvas = shear.i32_to_u16(torch.randint(0, 65536, shape, dtype=torch.int32, device="cuda",
+                                            generator=g))
+    a = (torch.rand(BATCH, device="cuda", generator=g) * 2 - 1) * 0.41422
+    b = (torch.rand(BATCH, device="cuda", generator=g) * 2 - 1) * 0.70711
+
+    def same(x, y):
+        return torch.equal(x.view(torch.int16), y.view(torch.int16))
+
+    before = (shear.shear_launches, shear.rotate3_launches)
+    rows = {}
+    for axis, slope, kmax in ((2, a, kmax_a), (1, b, kmax_b)):
+        got = shear.shear_cuda(canvas, slope, kmax=kmax, axis=axis)
+        ref = shear.shear_plain(canvas, slope, kmax=kmax, axis=axis)
+        torch.cuda.synchronize()
+        if not same(got, ref):
+            raise AssertionError(f"shear axis {axis}: kernel differs from plain")
+        kernel = lambda: shear.shear_cuda(canvas, slope, kmax=kmax, axis=axis)  # noqa: E731
+        plain = lambda: shear.shear_plain(canvas, slope, kmax=kmax, axis=axis)  # noqa: E731
+        bound_ms, bound_by = u16_bound_ms(shape, 1)
+        rows[f"shear_axis{axis}"] = {
+            "shape": list(shape), "kmax": kmax, "max_abs_err": 0.0,
+            "ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain, iters=10, warmup=2),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    kw = dict(kmax_a=kmax_a, kmax_b=kmax_b)
+    got = shear.rotate3_cuda(canvas, a, b, **kw)
+    ref = shear.rotate3_plain(canvas, a, b, **kw)
+    torch.cuda.synchronize()
+    if not same(got, ref):
+        raise AssertionError("rotate3 (uint16): kernel differs from plain")
+    kernel = lambda: shear.rotate3_cuda(canvas, a, b, **kw)  # noqa: E731
+    plain = lambda: shear.rotate3_plain(canvas, a, b, **kw)  # noqa: E731
+    bound_ms, bound_by = u16_bound_ms(shape, 3)
+    rows["rotate3"] = {"shape": list(shape), "kmax": [kmax_a, kmax_b], "max_abs_err": 0.0,
+                       "ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain, iters=10, warmup=2),
+                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+    # identities between the modes, on the card
+    three = shear.shear_cuda(shear.shear_cuda(shear.shear_cuda(canvas, a, kmax=kmax_a, axis=2),
+                                              b, kmax=kmax_b, axis=1), a, kmax=kmax_a, axis=2)
+    if not same(got, three):
+        raise AssertionError("rotate3 differs from three shear launches")
+    crops = torch.randint(0, 256, (BATCH, RAW, RAW, 3), dtype=torch.uint8, device="cuda",
+                          generator=g)
+    fixed = torch.nn.functional.pad(crops.permute(0, 3, 1, 2).to(torch.int32) * 256,
+                                    (pad, pad, pad, pad))
+    rotated = shear.rotate3_cuda(shear.i32_to_u16(fixed.contiguous()), a, b, **kw)
+    composed = shear.u16_to_i32(rotated)[..., pad:pad + RAW, pad:pad + RAW].to(torch.float32) / 256.0
+    zero = torch.zeros(BATCH, dtype=torch.int32, device="cuda")
+    fused = shear.rotate3_fused_cuda(crops, a, b, zero, pad=pad, **kw)
+    if not torch.equal(composed, fused):
+        raise AssertionError("crop(rotate3(pad(to_fixed(x)))) / 256 differs from rotate3_fused(x)")
+    torch.cuda.synchronize()
+    line("phase 2 uint16 shear modes vs plain (torch.equal) and identities", {
+        "rows": rows, "identities": {"rotate3 == shear x3": True,
+                                     "crop(rotate3(pad(to_fixed)))/256 == rotate3_fused": True},
+        "launches": {"shear": shear.shear_launches - before[0],
+                     "rotate3": shear.rotate3_launches - before[1]},
+    })
+    worst_axis = max(("shear_axis2", "shear_axis1"), key=lambda k: rows[k]["ms"])
+    return rows["rotate3"], rows[worst_axis]
 
 
 def labels_bound_ms(b, size, gf_kind, fused, normalize, gt):
@@ -500,18 +630,24 @@ def phase_validation(torch, evaluate, gaussian, data, model):
 
 
 class Kernels:
-    """The launch counters of the three kernel wrappers."""
+    """The launch counters of the kernel wrappers: name -> (module, counter)."""
 
     def __init__(self, gaussian, pseudo_label, shear):
-        self.mods = {"render_gaussian": gaussian, "pseudo_labels": pseudo_label,
-                     "rotate3_fused": shear}
+        self.counters = {
+            "render_gaussian": (gaussian, "launches"),
+            "pseudo_labels": (pseudo_label, "launches"),
+            "rotate3_fused": (shear, "launches"),
+            "rotate3_fused_f32": (shear, "fused_f32_launches"),
+            "rotate3": (shear, "rotate3_launches"),
+            "shear": (shear, "shear_launches"),
+        }
 
     def reset(self):
-        for mod in self.mods.values():
-            mod.launches = 0
+        for mod, attr in self.counters.values():
+            setattr(mod, attr, 0)
 
     def read(self):
-        return {name: mod.launches for name, mod in self.mods.items()}
+        return {name: getattr(mod, attr) for name, (mod, attr) in self.counters.items()}
 
 
 def plain_kernels(gaussian, pseudo_label, shear):
@@ -579,7 +715,7 @@ def phase_training(torch, models, train, data, kernels, smi):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / iters
     launches = kernels.read()
-    expected = {"render_gaussian": 7, "pseudo_labels": 3, "rotate3_fused": 2}
+    expected = dict(NO_LAUNCHES, render_gaussian=7, pseudo_labels=3, rotate3_fused=2)
     if launches != {k: v * iters for k, v in expected.items()}:
         raise AssertionError(f"training: launches {launches} for {iters} iterations, "
                              f"expected {expected} each")
@@ -650,7 +786,7 @@ def phase_training(torch, models, train, data, kernels, smi):
     line("phase 5 DA training resnet101 256²/64²/21, batch 32+32, 288² stores", {
         "card": smi, "setup_s": setup_s, "ms_per_iter": ms,
         "img_per_s": 2 * BATCH * 1e3 / ms, "iterations": iters, "losses": losses,
-        "launches_per_iter": {k: v // iters for k, v in launches.items()},
+        "launches_per_iter": {k: v // iters for k, v in launches.items() if v},
         "host_syncs": syncs, "profile": profile,
         "est_flop_per_iter": flops, "est_flop_per_s": flops / (ms / 1e3),
         "kernel_vs_plain": {"batches_equal": True, "loss_max_rel": loss_rel,
@@ -672,7 +808,7 @@ def phase_training(torch, models, train, data, kernels, smi):
     torch.cuda.synchronize()
     pre_ms = (time.perf_counter() - t0) * 1e3 / 3
     pre_launches = kernels.read()
-    if pre_launches != {"render_gaussian": 4, "pseudo_labels": 0, "rotate3_fused": 4}:
+    if pre_launches != dict(NO_LAUNCHES, render_gaussian=4, rotate3_fused=4):
         raise AssertionError(f"pretrain: launches {pre_launches} for 4 steps")
     if not np.isfinite(float(pm["loss_s"])):
         raise AssertionError("pretrain: non-finite loss")
@@ -680,7 +816,240 @@ def phase_training(torch, models, train, data, kernels, smi):
         "ms_per_iter": pre_ms, "img_per_s": BATCH * 1e3 / pre_ms,
         "loss_s": float(pm["loss_s"]), "launches": pre_launches,
     })
-    return {"launches": {k: v + pre_launches[k] for k, v in launches_all.items()}, "ms": ms}
+    return {"launches": {k: v + pre_launches[k] for k, v in launches_all.items()}, "ms": ms,
+            "state": state, "fused": fused, "gens": (s_gen, t_gen)}
+
+
+def phase_checkpoint(torch, trained, root):
+    """Save, restore and drain-stall times of the full DA state of phase 5
+    (ResNet-101 multi-head model, five momentum partitions, EMA): a
+    synchronous packed save and restore, and the fused iteration's ms/iter
+    with and without an asynchronous save draining behind it."""
+    from dahpe_tpu_torch.utils import checkpoint as ckpt
+    from dahpe_tpu_torch.utils import fast_ckpt
+
+    state, fused, (s_gen, t_gen) = trained["state"], trained["fused"], trained["gens"]
+    path = os.path.join(root, "phase6_state")
+    tree = ckpt.state_tree(state)
+    nbytes = sum(v.nbytes for _, v in fast_ckpt.flatten_tree(tree))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save_state(path, state)
+    save_s = time.perf_counter() - t0
+    before = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    step = state.step
+    t0 = time.perf_counter()
+    ckpt.restore_state(path, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if state.step != step or not all(torch.equal(v, before[k])
+                                     for k, v in state.model.state_dict().items()):
+        raise AssertionError("checkpoint: the restored state differs from the saved one")
+
+    def iterations(n=5):
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _, _, _ = fused(state, s_gen, t_gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    quiet_ms = iterations()
+    saver = fast_ckpt.AsyncSaver()
+    t0 = time.perf_counter()
+    saver.save(path, ckpt.state_tree(state))
+    saver.flush()
+    drain_idle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    saver.save(path, ckpt.state_tree(state))
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    draining_ms = iterations()
+    t0 = time.perf_counter()
+    saver.flush()
+    flush_wait_ms = (time.perf_counter() - t0) * 1e3
+    saver.close()
+    return {"state_mb": nbytes / 1e6, "save_s": save_s, "restore_s": restore_s,
+            "async_drain_s_idle": drain_idle_s, "save_enqueue_ms": enqueue_ms,
+            "ms_per_iter_quiet": quiet_ms, "ms_per_iter_while_draining": draining_ms,
+            "flush_wait_ms_after_5_iterations": flush_wait_ms}
+
+
+CLI_TRAIN, CLI_VAL = 256, 64  # frames per synthetic split in phase 6 (default 2048 / 256)
+CLI_ARCH, CLI_DEVICE = "resnet101", "cuda"
+
+
+def phase_cli(torch, kernels, smi, bare_ms, checkpoint):
+    """The training CLI end to end on the card (see the module docstring)."""
+    from dahpe_tpu_torch import data
+    from dahpe_tpu_torch.cli import test as test_cli
+    from dahpe_tpu_torch.cli import train as train_cli
+    from dahpe_tpu_torch.cli.args import build_parser
+    from dahpe_tpu_torch.data import synthetic
+    from dahpe_tpu_torch.utils import checkpoint as ckpt
+    from dahpe_tpu_torch.utils import fast_ckpt
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
+
+    # the depth of the data is cut, not its width: fewer frames per split
+    class Source(synthetic.SyntheticHandsSource):
+        def __init__(self, root="", **kw):
+            kw.setdefault("n", CLI_VAL if kw.get("split") == "test" else CLI_TRAIN)
+            super().__init__(root, **kw)
+
+    class Target(synthetic.SyntheticHandsTarget):
+        def __init__(self, root="", **kw):
+            kw.setdefault("n", CLI_VAL if kw.get("split") == "test" else CLI_TRAIN)
+            super().__init__(root, **kw)
+
+    Source.__name__, Target.__name__ = "SyntheticHandsSource", "SyntheticHandsTarget"
+    data.DATASETS.update(SyntheticHandsSource=Source, SyntheticHandsTarget=Target)
+    iters, pre_iters, profiled = 8, 8, 1
+    val_batches = -(-CLI_VAL // BATCH)
+
+    def argv(log, *extra, mode=("--device-store",)):
+        return ["unused", "-s", "SyntheticHandsSource", "-t", "SyntheticHandsTarget",
+                "-a", CLI_ARCH, "--device", CLI_DEVICE, "-b", str(BATCH),
+                "--image-size", str(IMAGE), "--heatmap-size", str(HEATMAP), *mode,
+                "--with-ema", "--print-freq", "100", "--workers", "8", "--seed", "3",
+                "--decoded-cache", os.path.join(root, "cache"),
+                "--log", os.path.join(root, log), *extra]
+
+    # ms/iter inside the CLI loop: host time between the starts of
+    # consecutive fused calls (the launch queue keeps the host within a
+    # fraction of an iteration of the card)
+    starts = []
+    real_fused = train_cli.make_fused_da_iteration
+
+    def timed_fused(*a, **kw):
+        call = real_fused(*a, **kw)
+
+        def timed(*args):
+            starts.append(time.perf_counter())
+            return call(*args)
+        return timed
+
+    train_cli.make_fused_da_iteration = timed_fused
+    kernels.reset()  # main path 3: the training CLI
+    t0 = time.perf_counter()
+    try:
+        train_cli.main(build_parser("train").parse_args(argv(
+            "run", "--pretrain-epochs", "1", "--epochs", "1", "-i", str(iters),
+            "--profile", str(profiled))))
+    finally:
+        train_cli.make_fused_da_iteration = real_fused
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    loop = starts[2 + profiled:]  # after the profile's warm-up and traced calls
+    cli_ms = (loop[-1] - loop[0]) * 1e3 / (len(loop) - 1)
+    log = os.path.join(root, "run")
+    records = [json.loads(r) for r in open(os.path.join(log, "metrics.jsonl"))]
+    kinds = [r["kind"] for r in records]
+    if kinds != ["pretrain_epoch", "da_epoch"]:
+        raise AssertionError(f"cli: metrics kinds {kinds}")
+    pck = records[1]["val_target"]["all"]
+    if not 0.0 <= pck <= 1.0:
+        raise AssertionError(f"cli: target PCK {pck} is not a real PCK")
+    for name in ("pretrain", "0", "best", "model_ema", "latest"):
+        if not fast_ckpt.is_packed(os.path.join(log, "checkpoints", name)):
+            raise AssertionError(f"cli: checkpoint {name} missing")
+    with open(os.path.join(log, "trace", "summary.json")) as fh:
+        profile = json.load(fh)
+
+    # --max-steps N, then --resume to 2N, against a straight 2N run, from the
+    # same warm start; cuDNN deterministic for the comparison
+    n = 3
+    warm = os.path.join(log, "checkpoints", "pretrain")
+    common = ("--pretrain", warm, "--epochs", "2", "-i", "4")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        train_cli.main(build_parser("train").parse_args(argv("cut", *common, "--max-steps", str(n))))
+        latest = os.path.join(root, "cut", "checkpoints", "latest")
+        train_cli.main(build_parser("train").parse_args(argv(
+            "cut", *common, "--max-steps", str(2 * n), "--resume", latest)))
+        train_cli.main(build_parser("train").parse_args(argv(
+            "straight", *common, "--max-steps", str(2 * n))))
+        straight = os.path.join(root, "straight", "checkpoints")
+        scores = test_cli.main(build_parser("test").parse_args(argv(
+            "test", "--checkpoint", os.path.join(straight, "best"))))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # the host-fed modes: --device-aug (the loader's uint8 crops, from the
+    # decoded cache, augmented on the card through the rotation kernel) and
+    # PIL (host transforms, targets on the card); host val loaders both
+    host_fed = {}
+    for name, mode in (("raw", ("--device-aug",)), ("pil", ())):
+        t0 = time.perf_counter()
+        train_cli.main(build_parser("train").parse_args(argv(
+            name, "--pretrain", warm, "--epochs", "1", "-i", "2", mode=mode)))
+        torch.cuda.synchronize()
+        rec = [json.loads(r) for r in open(os.path.join(root, name, "metrics.jsonl"))][-1]
+        if not (rec["kind"] == "da_epoch" and 0.0 <= rec["val_target"]["all"] <= 1.0
+                and all(np.isfinite(rec[k]) for k in ("loss_s", "loss_gf", "loss_gt"))):
+            raise AssertionError(f"cli {name} mode: {rec}")
+        host_fed[name] = {"run_s": time.perf_counter() - t0, "target_pck": rec["val_target"]["all"],
+                          "loss_s": rec["loss_s"]}
+    torch.cuda.synchronize()
+    launches = kernels.read()
+
+    resumed = fast_ckpt.load_packed_tree(latest)
+    direct = fast_ckpt.load_packed_tree(os.path.join(straight, "latest"))
+    flat_r, flat_d = fast_ckpt.flatten_tree(resumed), fast_ckpt.flatten_tree(direct)
+    if [p for p, _ in flat_r] != [p for p, _ in flat_d] or int(resumed["step"]) != 2 * n:
+        raise AssertionError("resume: the checkpoints hold different trees or steps")
+    unequal, worst = 0, 0.0
+    for (path, x), (_, y) in zip(flat_r, flat_d):
+        if not torch.equal(x, y):
+            unequal += 1
+            if x.is_floating_point():
+                worst = max(worst, float((x - y).abs().max()))
+            if not torch.allclose(x.double(), y.double(), rtol=1e-4, atol=1e-6):
+                raise AssertionError(f"resume: {'/'.join(path)} differs from the straight run")
+    aux_r, aux_d = ckpt.load_aux(latest), ckpt.load_aux(os.path.join(straight, "latest"))
+    if not all(np.array_equal(aux_r[k], aux_d[k]) for k in ("key_s", "key_t")):
+        raise AssertionError("resume: the sampling generators did not continue")
+    straight_records = [json.loads(r) for r in open(os.path.join(root, "straight", "metrics.jsonl"))]
+    best = straight_records[0]["best_target"]
+    if abs(scores["target"]["all"] - best) > 1e-6:
+        raise AssertionError(f"cli.test on best: PCK {scores['target']['all']} != logged {best}")
+
+    # launches the iteration counts imply: 7/3/2 per DA iteration (no
+    # rotation on the PIL path), 1 + 1 per pretrain step, 1 Gaussian per
+    # eval batch
+    da_iters = (2 + profiled + iters) + n + n + 2 * n + 2 + 2
+    rotated_iters = da_iters - 2                       # all but the PIL run's
+    eval_batches = (val_batches                        # pretrain epoch, source
+                    + 3 * val_batches                  # DA epoch: source, target, EMA
+                    + 3 * val_batches * 4              # epoch 0: resumed, straight, raw, PIL
+                    + 2 * val_batches)                 # cli.test: source, target
+    expected = dict(NO_LAUNCHES, render_gaussian=7 * da_iters + pre_iters + eval_batches,
+                    pseudo_labels=3 * da_iters, rotate3_fused=2 * rotated_iters + pre_iters)
+    if launches != expected:
+        raise AssertionError(f"cli: launches {launches}, expected {expected}")
+    # the runs' checkpoints and caches take several GB of disk; the logs,
+    # metrics and the trace stay under build/chip_smoke_cli
+    for name in os.listdir(root):
+        shutil.rmtree(os.path.join(root, name, "checkpoints"), ignore_errors=True)
+    for name in ("cache", "phase6_state"):
+        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    line("phase 6 training CLI resnet101 256²/64², batch 32, --device-store --with-ema", {
+        "card": smi, "data_cut": {"train_frames": CLI_TRAIN, "val_frames": CLI_VAL,
+                                  "default": [2048, 256]},
+        "run_s": run_s, "cli_ms_per_iter": cli_ms, "bare_ms_per_iter_phase5": bare_ms,
+        "cli_over_bare": cli_ms / bare_ms, "loop_iterations_timed": len(loop),
+        "profile_one_iteration": profile, "target_pck": pck,
+        "metrics": {k: records[1][k] for k in ("loss_s", "loss_gf", "loss_gt", "val_source",
+                                               "val_target_ema", "best_target")},
+        "resume": {"steps": [n, 2 * n], "leaves": len(flat_r), "unequal_leaves": unequal,
+                   "max_abs_diff": worst, "bit_identical": unequal == 0,
+                   "generators_equal": True, "rtol": 1e-4, "atol": 1e-6},
+        "cli_test_best": {"target": scores["target"]["all"], "logged": best},
+        "host_fed_modes": host_fed,
+        "checkpoint": checkpoint, "launches": launches,
+    })
+    return launches
 
 
 def main() -> int:
@@ -694,9 +1063,10 @@ def main() -> int:
     from dahpe_tpu_torch.ops import _build, gaussian, pseudo_label, shear
 
     smi = phase_device(torch, _build)
-    rows = {"render_gaussian": phase_gaussian(torch, gaussian),
-            "rotate3_fused": phase_rotate(torch, shear, device_aug),
-            "pseudo_labels": phase_labels(torch, pseudo_label)}
+    rows = {"render_gaussian": phase_gaussian(torch, gaussian)}
+    rows["rotate3_fused"], rows["rotate3_fused_f32"] = phase_rotate(torch, shear, device_aug)
+    rows["pseudo_labels"] = phase_labels(torch, pseudo_label)
+    rows["rotate3"], rows["shear"] = phase_shears(torch, shear)
     model = build_model(torch, models).cuda()
     kernels = Kernels(gaussian, pseudo_label, shear)
 
@@ -710,14 +1080,29 @@ def main() -> int:
     kernels.reset()  # main path 2: DA training
     trained = phase_training(torch, models, train, data, kernels, smi)
     for name, count in trained["launches"].items():
-        if count == 0:
+        if name in PATH_KERNELS and count == 0:
             raise AssertionError(f"{name} kernel never launched on the training path")
+        launches[name] += count
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    checkpoint = phase_checkpoint(torch, trained, root)
+    bare_ms = trained["ms"]
+    del trained
+    torch.cuda.empty_cache()
+    cli_launches = phase_cli(torch, kernels, smi, bare_ms, checkpoint)
+    for name, count in cli_launches.items():
+        if name in PATH_KERNELS and count == 0:
+            raise AssertionError(f"{name} kernel never launched on the CLI path")
         launches[name] += count
 
     sources = {
         "render_gaussian": ("render_gaussian.cu", "dahpe_tpu/ops/pallas/gaussian.py:45"),
         "pseudo_labels": ("pseudo_label.cu", "dahpe_tpu/ops/pallas/pseudo_label.py:72"),
         "rotate3_fused": ("rotate3.cu", "dahpe_tpu/ops/pallas/shear.py:164"),
+        "rotate3_fused_f32": ("rotate3.cu", "dahpe_tpu/ops/pallas/shear.py:164"),
+        "rotate3": ("rotate3.cu", "dahpe_tpu/ops/pallas/shear.py:215"),
+        "shear": ("rotate3.cu", "dahpe_tpu/ops/pallas/shear.py:92"),
     }
     print(json.dumps({"kernels": [{
         "name": name,

@@ -2,9 +2,10 @@
 
 Port of ``dahpe_tpu/evaluate.py``: ``make_predict_fn`` (images → keypoint
 coordinates), ``make_eval_step`` (forward + KL loss + PCK) and ``validate``
-(per-group PCK over a device-resident eval split). Eval and serving run the
-feature extractor and the main head only: under ``jax.jit`` the adversarial
-heads were dead code, and eager PyTorch would otherwise run them.
+(per-group PCK over a device-resident eval split or a host loader). Eval
+and serving run the feature extractor and the main head only: under
+``jax.jit`` the adversarial heads were dead code, and eager PyTorch would
+otherwise run them.
 
 Both factories take a ``device`` (default ``cuda``, see
 :func:`dahpe_tpu_torch.default_device`), move the model there, and set the
@@ -14,6 +15,7 @@ card.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dahpe_tpu_torch import resolve_device, set_float32_policy
@@ -21,6 +23,7 @@ from dahpe_tpu_torch.core.decode import get_max_preds
 from dahpe_tpu_torch.core.losses import joints_kl_loss
 from dahpe_tpu_torch.core.metrics import pck_accuracy
 from dahpe_tpu_torch.data.device_aug import IMAGENET_MEAN, IMAGENET_STD
+from dahpe_tpu_torch.data.pipeline import finalize_batch
 from dahpe_tpu_torch.utils.meters import AverageMeter, AverageMeterDict
 
 
@@ -109,27 +112,39 @@ def validate(
     model,
     dataset,
     *,
+    image_size: int = 256,
+    heatmap_size: int = 64,
     print_freq: int = 100,
     eval_step=None,
     device=None,
 ) -> dict:
     """Per-group PCK dict (``dataset.keypoints_group`` keys) over ``loader``.
 
-    ``loader`` must yield device-finalized batches
-    (:meth:`DeviceDataStore.eval_loader`) on ``device`` (default ``cuda``);
-    host loaders are ported with the host data path.
+    ``loader`` yields either device-finalized batches
+    (:meth:`DeviceDataStore.eval_loader`) on ``device`` (default ``cuda``),
+    or host batches (``BatchLoader``: numpy ``image``, ``keypoint2d``,
+    ``visible``) that are finalized there with ``image_size`` /
+    ``heatmap_size`` targets. A trailing partial host batch is padded to the
+    loader's batch size with zero rows: their all-zero targets fail the PCK
+    peak filter and the loss is averaged over the real rows only.
     """
-    if not getattr(loader, "device_finalized", False):
-        raise NotImplementedError(
-            "validate: only device-finalized loaders (DeviceDataStore."
-            "eval_loader) are ported; host loaders come with the host data path"
-        )
     eval_step = eval_step or make_eval_step(model, device=device)
     acc = AverageMeterDict(dataset.keypoints_group.keys(), ":3.2f")
     losses = AverageMeter("Loss", ":.2e")
+    full_batch = getattr(loader, "batch_size", None)
+    prepared = getattr(loader, "device_finalized", False)
 
     for i, item in enumerate(loader):
-        batch, n_real = item["batch"], item["n_real"]
+        if prepared:
+            batch, n_real = item["batch"], item["n_real"]
+        else:
+            n_real = int(item["image"].shape[0])
+            if full_batch is not None and n_real < full_batch:
+                pad = full_batch - n_real
+                item = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+                        for k, v in item.items()}
+            batch = finalize_batch(item, heatmap_size=(heatmap_size, heatmap_size),
+                                   image_size=(image_size, image_size), device=device)
         out = eval_step(batch)
         # one device→host copy for both metrics
         rows = out["loss_per_sample"].shape[0]

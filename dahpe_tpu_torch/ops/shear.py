@@ -1,17 +1,26 @@
-"""Paeth rotation of training canvases: the CUDA kernel and its plain twin.
+"""Paeth rotation and shears of training canvases: the CUDA kernels and
+their plain twins.
 
-Port of the TPU kernel ``dahpe_tpu/ops/pallas/shear.py:rotate3_fused_pallas``
-together with the quarter-turn and layout glue of
-``dahpe_tpu/data/device_aug.py:_rotate_shears``. The kernel lives in
-``dahpe_tpu_torch/csrc/rotate3.cu`` (its header says what bounds it and how
-its design answers that); this module builds, binds and launches it, and
-holds :func:`rotate3_fused_plain`, the same function in plain PyTorch: the
-JAX package's masked-shift shears (``_shift_rows_x``, ``_shear_x``,
-``_shear_y``) on 8.8 fixed-point canvases, held in int32 here because torch
-has little uint16 arithmetic (the values are the same integers).
+Ports of the three TPU kernels of ``dahpe_tpu/ops/pallas/shear.py``, all
+modes of one CUDA source, ``dahpe_tpu_torch/csrc/rotate3.cu`` (its header
+says what bounds them and how its design answers that):
 
-:func:`rotate3_fused` takes the plain version only for tensors on the CPU.
-For a CUDA tensor it launches the kernel or raises; there is no fallback.
+- :func:`rotate3_fused` (``rotate3_fused_pallas``), with the quarter-turn and
+  layout glue of ``dahpe_tpu/data/device_aug.py:_rotate_shears``: uint8 or
+  float32 ``(B, S, S, C)`` crops in ``[0, 255]`` → rotated ``(B, C, S, S)``
+  float32. The training producer's rotation.
+- :func:`rotate3` (``rotate3_pallas``): ``ShX(a)·ShY(b)·ShX(a)`` of padded
+  8.8 fixed-point ``(B, C, H, W)`` ``torch.uint16`` canvases.
+- :func:`shear` (``shear_pallas``): one bilinear shear of such canvases.
+
+Per-image slopes ``(B,)`` replace the JAX package's ``vmap``. The plain
+versions (``*_plain``) are the JAX package's masked-shift shears
+(``_shift_rows_x``, ``_shear_x``, ``_shear_y``), held in int32 here because
+torch has little uint16 arithmetic (the values are the same integers).
+
+Each dispatcher takes the plain version only for tensors on the CPU. For a
+CUDA tensor it launches the kernel or raises; there is no fallback. Each
+kernel mode counts its launches in a module counter.
 """
 
 from __future__ import annotations
@@ -27,18 +36,46 @@ from dahpe_tpu_torch.ops import _build
 LIB_NAME = "rotate3"
 SOURCES = ["rotate3.cu"]
 
-# kernel launches made by rotate3_fused_cuda since the last reset
+# kernel launches since the last reset: rotate3_fused_cuda on uint8 crops
+# (the training path), on float32 crops, rotate3_cuda and shear_cuda
 launches = 0
+fused_f32_launches = 0
+rotate3_launches = 0
+shear_launches = 0
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "rotate3_fused_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rotate3_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rotate3_u16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "shear_u16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(LIB_NAME, SOURCES)
-    fn = lib.rotate3_fused_u8
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def u16_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """``torch.uint16`` → int32 with the same values, through an int16 view
+    (casts out of uint16 are not implemented everywhere)."""
+    return x.view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def i32_to_u16(x: torch.Tensor) -> torch.Tensor:
+    """int32 values in ``[0, 65535]`` → ``torch.uint16``, through int16."""
+    return torch.where(x > 32767, x - 65536, x).to(torch.int16).view(torch.uint16)
 
 
 def rotation_geometry(size: int) -> tuple[int, int, int]:
@@ -124,6 +161,15 @@ def rotate3_fused_plain(
     return x[..., pad : pad + h, pad : pad + w].to(torch.float32) * (1.0 / 256.0)
 
 
+def _check_cuda(name: str, args) -> None:
+    if not all(t.is_cuda and t.device == args[0].device for t in args):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError(f"{name}: inputs must be contiguous")
+    if args[0].numel() >= 2**31:
+        raise ValueError(f"{name}: the canvas must have fewer than 2^31 elements")
+
+
 def rotate3_fused_cuda(
     images: torch.Tensor,
     slope_a: torch.Tensor,
@@ -135,15 +181,15 @@ def rotate3_fused_cuda(
     kmax_b: int,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; same contract as
-    :func:`rotate3_fused_plain` for contiguous uint8 ``images``, float32
-    slopes and int32 quarter-turns, all on one CUDA device."""
-    global launches
+    :func:`rotate3_fused_plain` for contiguous uint8 or float32 ``images``,
+    float32 slopes and int32 quarter-turns, all on one CUDA device."""
+    global launches, fused_f32_launches
     args = (images, slope_a, slope_b, quarter)
-    if not all(t.is_cuda and t.device == images.device for t in args):
-        raise ValueError("rotate3_fused_cuda: all inputs must be on one CUDA device")
-    if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[1] != images.shape[2]:
+    _check_cuda("rotate3_fused_cuda", args)
+    if (images.dtype not in (torch.uint8, torch.float32) or images.dim() != 4
+            or images.shape[1] != images.shape[2]):
         raise ValueError(
-            f"rotate3_fused_cuda: need square uint8 images (B, S, S, C), got "
+            f"rotate3_fused_cuda: need square uint8 or float32 images (B, S, S, C), got "
             f"{images.dtype} {tuple(images.shape)}"
         )
     b, size, _, c = images.shape
@@ -151,23 +197,21 @@ def rotate3_fused_cuda(
         raise ValueError("rotate3_fused_cuda: need float32 slopes and int32 quarter-turns")
     if not all(tuple(t.shape) == (b,) for t in args[1:]):
         raise ValueError(f"rotate3_fused_cuda: slopes and quarter-turns must be ({b},)")
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("rotate3_fused_cuda: inputs must be contiguous")
-    if b * c * size * size >= 2**31:
-        raise ValueError("rotate3_fused_cuda: the output must have fewer than 2^31 elements")
     out = torch.empty((b, c, size, size), dtype=torch.float32, device=images.device)
     if out.numel() == 0:
         return out
     lib = _lib()
+    fn = lib.rotate3_fused_u8 if images.dtype == torch.uint8 else lib.rotate3_fused_f32
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
-        err = lib.rotate3_fused_u8(
+        _check_launch(fn(
             images.data_ptr(), slope_a.data_ptr(), slope_b.data_ptr(), quarter.data_ptr(),
             out.data_ptr(), b, size, c, int(pad), int(kmax_a), int(kmax_b), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"rotate3 kernel launch failed: cudaError {err}")
-    launches += 1
+        ), "rotate3_fused")
+    if images.dtype == torch.uint8:
+        launches += 1
+    else:
+        fused_f32_launches += 1
     return out
 
 
@@ -181,9 +225,13 @@ def rotate3_fused(
     kmax_a: int,
     kmax_b: int,
 ) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    """The kernel for CUDA tensors (uint8 crops as they are, any other dtype
+    as float32, as the Pallas kernel takes them), the plain version for CPU
+    tensors."""
     kw = dict(pad=pad, kmax_a=kmax_a, kmax_b=kmax_b)
     if images.device.type == "cuda":
+        if images.dtype != torch.uint8:
+            images = images.to(torch.float32)
         return rotate3_fused_cuda(
             images.contiguous(), slope_a.to(torch.float32).contiguous(),
             slope_b.to(torch.float32).contiguous(),
@@ -192,3 +240,104 @@ def rotate3_fused(
     if images.device.type == "cpu":
         return rotate3_fused_plain(images, slope_a, slope_b, quarter, **kw)
     raise ValueError(f"rotate3_fused: no kernel for device {images.device}")
+
+
+# ---- kernels 4 and 5: the shears of a uint16 canvas that is already padded
+
+def _check_u16(name: str, images: torch.Tensor) -> None:
+    if images.dtype != torch.uint16 or images.dim() != 4:
+        raise ValueError(f"{name}: need uint16 canvases (B, C, H, W), got "
+                         f"{images.dtype} {tuple(images.shape)}")
+
+
+def shear_plain(images: torch.Tensor, slope: torch.Tensor, *, kmax: int,
+                axis: int = 2) -> torch.Tensor:
+    """Plain PyTorch version of :func:`shear`: ``ShX`` (``axis=2``, each row
+    shifted along W about the middle row) or ``ShY`` (``axis=1``, each column
+    shifted along H about the middle column) of ``(B, C, H, W)`` uint16
+    canvases with per-image slopes ``(B,)``."""
+    _check_u16("shear_plain", images)
+    fn = {2: _shear_x, 1: _shear_y}[axis]
+    return i32_to_u16(fn(u16_to_i32(images), slope.to(torch.float32), kmax))
+
+
+def rotate3_plain(images: torch.Tensor, slope_a: torch.Tensor, slope_b: torch.Tensor, *,
+                  kmax_a: int, kmax_b: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rotate3`: ``ShX(a)·ShY(b)·ShX(a)`` of
+    ``(B, C, H, W)`` uint16 canvases, each shear rounded to 8.8 in turn."""
+    _check_u16("rotate3_plain", images)
+    a, b = slope_a.to(torch.float32), slope_b.to(torch.float32)
+    x = _shear_x(u16_to_i32(images), a, kmax_a)
+    x = _shear_y(x, b, kmax_b)
+    return i32_to_u16(_shear_x(x, a, kmax_a))
+
+
+def shear_cuda(images: torch.Tensor, slope: torch.Tensor, *, kmax: int,
+               axis: int = 2) -> torch.Tensor:
+    """Launch the one-shear kernel on the current stream; contiguous uint16
+    ``images`` and float32 ``slope`` on one CUDA device."""
+    global shear_launches
+    _check_u16("shear_cuda", images)
+    _check_cuda("shear_cuda", (images, slope))
+    b, c, h, w = images.shape
+    if slope.dtype != torch.float32 or tuple(slope.shape) != (b,):
+        raise ValueError(f"shear_cuda: need a float32 slope per image, ({b},)")
+    if axis not in (1, 2):
+        raise ValueError(f"shear_cuda: axis must be 1 or 2, got {axis}")
+    out = torch.empty_like(images)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        _check_launch(_lib().shear_u16(images.data_ptr(), slope.data_ptr(), out.data_ptr(),
+                                       b, c, h, w, int(kmax), int(axis), stream), "shear")
+    shear_launches += 1
+    return out
+
+
+def rotate3_cuda(images: torch.Tensor, slope_a: torch.Tensor, slope_b: torch.Tensor, *,
+                 kmax_a: int, kmax_b: int) -> torch.Tensor:
+    """Launch the three-shear kernel on the current stream; contiguous
+    uint16 ``images`` and float32 slopes on one CUDA device."""
+    global rotate3_launches
+    _check_u16("rotate3_cuda", images)
+    _check_cuda("rotate3_cuda", (images, slope_a, slope_b))
+    b, c, h, w = images.shape
+    if not all(t.dtype == torch.float32 and tuple(t.shape) == (b,) for t in (slope_a, slope_b)):
+        raise ValueError(f"rotate3_cuda: need float32 slopes per image, ({b},)")
+    out = torch.empty_like(images)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        _check_launch(_lib().rotate3_u16(
+            images.data_ptr(), slope_a.data_ptr(), slope_b.data_ptr(), out.data_ptr(),
+            b, c, h, w, int(kmax_a), int(kmax_b), stream), "rotate3")
+    rotate3_launches += 1
+    return out
+
+
+def shear(images: torch.Tensor, slope: torch.Tensor, *, kmax: int, axis: int = 2) -> torch.Tensor:
+    """One bilinear shear of ``(B, C, H, W)`` uint16 8.8 canvases with
+    per-image slopes ``(B,)``: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if images.device.type == "cuda":
+        return shear_cuda(images.contiguous(), slope.to(torch.float32).contiguous(),
+                          kmax=kmax, axis=axis)
+    if images.device.type == "cpu":
+        return shear_plain(images, slope, kmax=kmax, axis=axis)
+    raise ValueError(f"shear: no kernel for device {images.device}")
+
+
+def rotate3(images: torch.Tensor, slope_a: torch.Tensor, slope_b: torch.Tensor, *,
+            kmax_a: int, kmax_b: int) -> torch.Tensor:
+    """``ShX(a)·ShY(b)·ShX(a)`` of ``(B, C, H, W)`` uint16 8.8 canvases (``H``
+    may differ from ``W``) with per-image slopes: the kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    kw = dict(kmax_a=kmax_a, kmax_b=kmax_b)
+    if images.device.type == "cuda":
+        return rotate3_cuda(images.contiguous(), slope_a.to(torch.float32).contiguous(),
+                            slope_b.to(torch.float32).contiguous(), **kw)
+    if images.device.type == "cpu":
+        return rotate3_plain(images, slope_a, slope_b, **kw)
+    raise ValueError(f"rotate3: no kernel for device {images.device}")

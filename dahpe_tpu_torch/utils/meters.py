@@ -4,7 +4,7 @@ running averages for losses and accuracies with the reference's display."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, Mapping
+from typing import Dict, Iterable, Mapping, Sequence
 
 
 @dataclass
@@ -57,3 +57,17 @@ class AverageMeterDict:
 
     def __getitem__(self, name: str) -> AverageMeter:
         return self._meters[name]
+
+
+class ProgressMeter:
+    """Tab-joined ``prefix[ i/N]  meter  meter ...`` progress line."""
+
+    def __init__(self, num_batches: int, meters: Sequence[AverageMeter], prefix: str = ""):
+        self.num_batches = num_batches
+        self.meters = list(meters)
+        self.prefix = prefix
+
+    def display(self, batch: int) -> None:
+        width = len(str(self.num_batches))
+        counter = f"[{batch:{width}d}/{self.num_batches:{width}d}]"
+        print("\t".join([self.prefix + counter, *map(str, self.meters)]), flush=True)

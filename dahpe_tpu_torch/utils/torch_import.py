@@ -101,6 +101,19 @@ def load_pth(path: str, key: str | None = "model") -> dict[str, torch.Tensor]:
     return {k: v.detach() for k, v in obj.items()}
 
 
+def filtered_update(state_dict: Mapping, imported: Mapping) -> dict[str, torch.Tensor]:
+    """``state_dict`` with every entry of ``imported`` whose key and shape
+    it has replaced: the reference's key-filtered, ``strict=False`` warm
+    start (``train1.py:184-189``), as the JAX package's ``filtered_update``.
+    The pretrain head's Conv1x1 keys, absent from the multi-head model, are
+    dropped."""
+    out = dict(state_dict)
+    for key, value in imported.items():
+        if key in out and tuple(out[key].shape) == tuple(value.shape):
+            out[key] = torch.as_tensor(value)
+    return out
+
+
 def _momentum_trace(opt_state) -> Mapping:
     """The trace tree of one partition's optax state: ``torch_sgd`` is
     ``chain(add_decayed_weights, trace)``, whose state is a tuple holding a

@@ -161,11 +161,34 @@ def test_validate_matches_jax(pair, capsys):
     assert store.nbytes() >= 5 * IMAGE * IMAGE * 3
 
 
+class HostSource(ArraySource):
+    """The split as a host dataset: ``fetch`` returns the normalized frame."""
+
+    def fetch(self, i, rng):
+        image = (self.images[i].astype(np.float32) / 255.0 - [0.485, 0.456, 0.406]) \
+            / [0.229, 0.224, 0.225]
+        return {"image": image.astype(np.float32), "keypoint2d": self.kps[i],
+                "visible": self.vis[i]}
+
+
 def test_validate_refuses_host_loaders(pair):
-    _, _, model = pair
-    with pytest.raises(NotImplementedError):
-        evaluate.validate([{"image": np.zeros((1, IMAGE, IMAGE, 3))}], model,
-                          Hand21KeypointDataset(), device="cpu")
+    """Host loaders, refused until the host data path was ported, are now
+    finalized on the device: PCK over a ``BatchLoader`` (trailing partial
+    batch padded) equals the JAX package's over its own loader."""
+    from dahpe_tpu.data import BatchLoader as JBatchLoader
+
+    from dahpe_tpu_torch.data import BatchLoader
+
+    jmodel, variables, model = pair
+    source = HostSource(5, IMAGE, seed=4)
+    kw = dict(shuffle=False, drop_last=False, num_workers=1)
+    got = evaluate.validate(BatchLoader(source, 2, **kw), model, Hand21KeypointDataset(),
+                            image_size=IMAGE, heatmap_size=HEATMAP, print_freq=1000,
+                            device="cpu")
+    ref = jevaluate.validate(JBatchLoader(source, 2, **kw), jmodel, variables,
+                             JHand21("unused", []), image_size=IMAGE, heatmap_size=HEATMAP,
+                             print_freq=1000)
+    assert got == ref
 
 
 @pytest.mark.parametrize("factory", ["make_predict_fn", "make_eval_step"])
