@@ -13,8 +13,12 @@ line, fail the run by raising:
 2. every CUDA kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with its time, the plain time and the
    least time the card could take (its bound): the Gaussian targets, the
-   Paeth rotation of the training producer (uint8, and its float32 mode),
-   the fused pseudo-labels, and the rotation kernel's two uint16 modes (one
+   Paeth rotation of the training producer (uint8, and its float32 mode;
+   every quarter-turn, the path's extreme slopes and slopes beyond them,
+   whose tiles take the kernel's direct walk, sizes 288, 256 and 100, one
+   image), the fused pseudo-labels (the three builds of Step B with GT and
+   GF alone, every GF kind with and without fusion and normalisation, and
+   the largest shapes), and the rotation kernel's two uint16 modes (one
    shear on either axis, the three-shear rotation) on the padded canvas of
    the 288² store, with two identities between the modes;
 3. serving: ``MultiHeadPoseResNet(resnet101)`` at full width (256² frames,
@@ -106,7 +110,20 @@ def host_ms(torch, fn, iters: int = 100) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-PORT_KERNELS = ("render_gaussian_kernel", "pseudo_labels_kernel", "rotate3_kernel")
+PORT_KERNELS = ("render_gaussian_kernel", "pseudo_labels_kernel", "rotate3_fused_kernel",
+                "rotate3_kernel")
+
+
+def ptxas_summary(log: str) -> dict[str, str]:
+    """``nvcc -Xptxas -v``'s registers, barriers and shared memory per kernel,
+    keyed by the mangled name cut to 72 characters."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1][:72]
+        elif "Used" in ln and "registers" in ln and name:
+            out[name] = ln.split("Used", 1)[1].strip()
+    return out
 
 
 def device_profile(torch, fn) -> dict:
@@ -156,8 +173,7 @@ def phase_device(torch, build):
         "cuda": torch.version.cuda,
         "kernel_build_s": round(time.perf_counter() - t0, 3),
         "nvcc_s": {name: round(r["seconds"], 3) for name, r in records.items()},
-        "ptxas": {name: [ln for ln in r["log"].splitlines() if "registers" in ln]
-                  for name, r in records.items()},
+        "ptxas": {name: ptxas_summary(r["log"]) for name, r in records.items()},
     })
     return smi
 
@@ -258,12 +274,48 @@ def u16_bound_ms(shape, shears):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+A_MAX, B_MAX = float(np.float32(np.tan(np.pi / 8))), float(np.float32(np.sin(np.pi / 4)))
+
+
+def rotation_case(torch, shear, size, a, b, quarter, seed):
+    """One batch of uint8 crops through ``rotate3_fused`` against its plain
+    version, then the float32 mode on the same crops as integral floats
+    (must equal the uint8 mode) and on non-integral floats beyond both ends
+    of [0, 255] (must equal the plain version); returns the tiles that took
+    the kernel's direct walk in the uint8 launch."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randint(0, 256, (len(a), size, size, 3), dtype=torch.uint8, device="cuda",
+                           generator=g)
+    pad, kmax_a, kmax_b = shear.rotation_geometry(size)
+    kw = dict(pad=pad, kmax_a=kmax_a, kmax_b=kmax_b)
+    direct = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = shear.rotate3_fused_cuda(images, a, b, quarter, direct_tiles=direct, **kw)
+    ref = shear.rotate3_fused_plain(images, a, b, quarter, **kw)
+    frac = torch.rand(images.shape, device="cuda", generator=g) * 258.0 - 1.5
+    got_int = shear.rotate3_fused_cuda(images.to(torch.float32), a, b, quarter, **kw)
+    got_frac = shear.rotate3_fused_cuda(frac, a, b, quarter, **kw)
+    ref_frac = shear.rotate3_fused_plain(frac, a, b, quarter, **kw)
+    torch.cuda.synchronize()
+    where = f"rotate3_fused {size}² x {len(a)}"
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{where}: kernel differs from plain, max abs "
+                             f"{float((got - ref).abs().max())}")
+    if not torch.equal(got_int, got):
+        raise AssertionError(f"{where}: float32 mode on integral floats differs from uint8")
+    if not torch.equal(got_frac, ref_frac):
+        raise AssertionError(f"{where}: float32 mode differs from plain, max abs "
+                             f"{float((got_frac - ref_frac).abs().max())}")
+    return int(direct.item())
+
+
 def phase_rotate(torch, shear, device_aug):
-    """Kernel 3 at the training producer's shape: one batch of 288² uint8
-    crops, angles over all four quarter-turns and |r| = 45°; then its
-    float32 mode on the same crops as integral floats (it must equal the
-    uint8 mode) and on non-integral floats."""
-    launches_before = shear.launches
+    """Kernel 3 at the training producer's shape, one batch of 288² uint8
+    crops at angles over all four quarter-turns and |r| = 45°, timed (uint8
+    and float32 input); then
+    the cases of :func:`rotation_case`: the path's extreme slopes (every tile
+    staged), slopes beyond them (tiles on the direct walk), sizes 256 and 100,
+    one image. Each is ``torch.equal`` to the plain version."""
+    launches_before, f32_before = shear.launches, shear.fused_f32_launches
     g = torch.Generator(device="cuda").manual_seed(5)
     images = torch.randint(0, 256, (BATCH, RAW, RAW, 3), dtype=torch.uint8, device="cuda",
                            generator=g)
@@ -272,49 +324,67 @@ def phase_rotate(torch, shear, device_aug):
     quarter, a, b = device_aug.rotation_slopes(angles)
     pad, kmax_a, kmax_b = shear.rotation_geometry(RAW)
     kw = dict(pad=pad, kmax_a=kmax_a, kmax_b=kmax_b)
-    got = shear.rotate3_fused_cuda(images, a, b, quarter, **kw)
+    direct = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = shear.rotate3_fused_cuda(images, a, b, quarter, direct_tiles=direct, **kw)
     ref = shear.rotate3_fused_plain(images, a, b, quarter, **kw)
+    frac = torch.rand(images.shape, device="cuda", generator=g) * 255.0
+    got_frac = shear.rotate3_fused_cuda(frac, a, b, quarter, **kw)
+    ref_frac = shear.rotate3_fused_plain(frac, a, b, quarter, **kw)
     torch.cuda.synchronize()
     if not torch.equal(got, ref):
         raise AssertionError(f"rotate3: kernel differs from plain, max abs "
                              f"{float((got - ref).abs().max())}")
-    kernel = lambda: shear.rotate3_fused_cuda(images, a, b, quarter, **kw)  # noqa: E731
-    plain = lambda: shear.rotate3_fused_plain(images, a, b, quarter, **kw)  # noqa: E731
-    ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain, iters=10, warmup=2)
-    bound_ms, bound_by = rotation_bound_ms(BATCH, RAW, 3)
-    row = {"shape": [BATCH, RAW, RAW, 3], "quarter_turns": sorted(set(quarter.tolist())),
-           "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": None, "call_ms": host_ms(torch, kernel)}
-    line("phase 2 rotate3 kernel vs plain (torch.equal)",
-         dict(row, launches=shear.launches - launches_before))
-
-    # the float32 mode: integral floats give the uint8 mode's result, and
-    # non-integral ones the plain version's rounding
-    f32_before = shear.fused_f32_launches
-    as_float = images.to(torch.float32)
-    frac = torch.rand(images.shape, device="cuda", generator=g) * 255.0
-    got_int = shear.rotate3_fused_cuda(as_float, a, b, quarter, **kw)
-    got_frac = shear.rotate3_fused_cuda(frac, a, b, quarter, **kw)
-    ref_frac = shear.rotate3_fused_plain(frac, a, b, quarter, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(got_int, got):
-        raise AssertionError("rotate3 float32 mode: integral floats differ from the uint8 mode")
     if not torch.equal(got_frac, ref_frac):
-        raise AssertionError(f"rotate3 float32 mode: kernel differs from plain, max abs "
-                             f"{float((got_frac - ref_frac).abs().max())}")
+        raise AssertionError("rotate3 float32 mode: kernel differs from plain")
+    if int(direct.item()) != 0:
+        raise AssertionError(f"rotate3: {int(direct.item())} tiles off the staged path at the "
+                             f"path's slopes")
     # the dispatcher launches the float mode for float crops on the card
     if not torch.equal(shear.rotate3_fused(frac, a, b, quarter, **kw), got_frac):
         raise AssertionError("rotate3_fused on float32 crops differs from the float32 mode")
-    kernel = lambda: shear.rotate3_fused_cuda(frac, a, b, quarter, **kw)  # noqa: E731
-    plain = lambda: shear.rotate3_fused_plain(frac, a, b, quarter, **kw)  # noqa: E731
-    bound_ms, bound_by = rotation_bound_ms(BATCH, RAW, 3, in_bytes=4)
-    row_f32 = {"shape": [BATCH, RAW, RAW, 3], "dtype": "float32", "max_abs_err": 0.0,
+
+    rows = []
+    for crops, in_bytes in ((images, 1), (frac, 4)):
+        kernel = lambda: shear.rotate3_fused_cuda(crops, a, b, quarter, **kw)  # noqa: E731
+        plain = lambda: shear.rotate3_fused_plain(crops, a, b, quarter, **kw)  # noqa: E731
+        bound_ms, bound_by = rotation_bound_ms(BATCH, RAW, 3, in_bytes=in_bytes)
+        row = {"shape": [BATCH, RAW, RAW, 3], "dtype": str(crops.dtype).split(".")[-1],
+               "quarter_turns": sorted(set(quarter.tolist())), "max_abs_err": 0.0,
                "ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain, iters=10, warmup=2),
                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-               "equals_uint8_mode_on_integral_input": True}
-    line("phase 2 rotate3 float32 mode vs plain (torch.equal)",
-         dict(row_f32, launches=shear.fused_f32_launches - f32_before))
-    return row, row_f32
+               "call_ms": host_ms(torch, kernel)}
+        row["over_bound"] = row["ms"] / bound_ms
+        rows.append(row)
+
+    # the cases: (name, size, a, b, quarter-turns)
+    def cycle(n, values):
+        return torch.tensor([values[i % len(values)] for i in range(n)], device="cuda")
+
+    q8 = cycle(8, [0, 1, 2, 3]).to(torch.int32)
+    extreme = (cycle(8, [A_MAX, -A_MAX, -A_MAX, A_MAX]), cycle(8, [B_MAX, B_MAX, -B_MAX, -B_MAX]))
+    beyond = (cycle(8, [0.9, -1.3, 0.6, -0.5]), cycle(8, [1.4, -0.95, -2.0, 1.1]))
+    cases = [("path extremes 288²", RAW, *extreme, q8), ("path extremes 256²", 256, *extreme, q8),
+             ("path extremes 100²", 100, *extreme, q8),
+             ("beyond the caps 288²", RAW, *beyond, q8), ("beyond the caps 100²", 100, *beyond, q8),
+             ("one image 288²", RAW, extreme[0][:1], extreme[1][2:3],
+              torch.tensor([3], dtype=torch.int32, device="cuda"))]
+    direct_tiles = {}
+    for i, (name, size, ca, cb, cq) in enumerate(cases):
+        direct_tiles[name] = rotation_case(torch, shear, size, ca.float(), cb.float(), cq, 50 + i)
+    if any(direct_tiles[name] for name in direct_tiles if "beyond" not in name):
+        raise AssertionError(f"rotate3: tiles off the staged path at the path's slopes "
+                             f"{direct_tiles}")
+    if not all(direct_tiles[name] for name in direct_tiles if "beyond" in name):
+        raise AssertionError(f"rotate3: no tile took the direct walk beyond the caps "
+                             f"{direct_tiles}")
+    line("phase 2 rotate3_fused kernel vs plain (torch.equal), uint8 and float32", {
+        "rows": rows, "cases_equal": [c[0] for c in cases],
+        "direct_walk_tiles": direct_tiles, "tiles_per_288_batch_of_8": 8 * 9 * 9,
+        "stage_capacity_words": shear.stage_capacity(3),
+        "launches": {"uint8": shear.launches - launches_before,
+                     "float32": shear.fused_f32_launches - f32_before},
+    })
+    return rows[0], rows[1]
 
 
 def phase_shears(torch, shear):
@@ -390,55 +460,99 @@ def phase_shears(torch, shear):
     return rows["rotate3"], rows[worst_axis]
 
 
-def labels_bound_ms(b, size, gf_kind, fused, normalize, gt):
+def labels_bound_ms(b, size, gf_kind, fused, normalize, gt, joints=JOINTS, with_gt=True):
     """Least time for one label build: peaks (and the fused target) read
-    once, GT and GF written once, against the float32 work: per element 2
+    once, GF (and GT) written once, against the float32 work: per element 2
     window compares, ~6 for GF (multiply, subtract, 2 clips), 4 more to fuse
     and 2 to normalize (max, divide); 8 per element this run's peaks put in
     a window (as the Gaussian's bound); the union sum's K adds per pixel."""
-    elements = b * size * size * JOINTS
-    in_bytes = b * JOINTS * 8 + (elements * 4 if fused else 0)
-    bytes_ms = (in_bytes + 2 * elements * 4) / HBM_BYTES_PER_S * 1e3
+    elements = b * size * size * joints
+    in_bytes = b * joints * 8 + (elements * 4 if fused else 0)
+    bytes_ms = (in_bytes + (2 if with_gt else 1) * elements * 4) / HBM_BYTES_PER_S * 1e3
     per_element = 2 + 6 + (4 if fused else 0) + (2 if normalize else 0)
     ops = elements * per_element + 8 * float((gt > 0).sum())
     if gf_kind != "inverse":
-        ops += b * size * size * JOINTS
+        ops += b * size * size * joints
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def label_case(torch, pseudo_label, batch, size, joints, reach, gf_kind, fused, normalize,
+               seed, low=0):
+    """One label build through the kernel, with GT and GF alone, against the
+    plain version: GT ``torch.equal``, GF within atol 1e-6 (1e-5 with a fused
+    target), the GF-only call's GF equal to the full call's. Returns the
+    inputs, the keywords, the kernel's (GT, GF) and GF's error."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    peaks = torch.randint(low, size - low, (batch, joints, 2), dtype=torch.int32, device="cuda",
+                          generator=g)
+    target = None
+    if fused:
+        target = torch.rand((batch, size, size, joints), device="cuda", generator=g)
+    kw = dict(out_size=size, reach=reach, gf_kind=gf_kind, normalize=normalize)
+    gt, gf = pseudo_label.pseudo_labels_cuda(peaks, target, **kw)
+    none, gf_only = pseudo_label.pseudo_labels_cuda(peaks, target, with_gt=False, **kw)
+    gt_ref, gf_ref = pseudo_label.pseudo_labels_plain(peaks, target, **kw)
+    torch.cuda.synchronize()
+    where = f"labels {batch}x{size}²x{joints} {gf_kind} fused={fused} normalize={normalize}"
+    atol = 1e-5 if fused else 1e-6
+    err = float((gf - gf_ref).abs().max())
+    if not torch.equal(gt, gt_ref):
+        raise AssertionError(f"{where}: GT differs from plain")
+    if not err <= atol:
+        raise AssertionError(f"{where}: GF max abs err {err} > {atol}")
+    if none is not None or not torch.equal(gf_only, gf):
+        raise AssertionError(f"{where}: the GF-only call differs from the full call")
+    return peaks, target, kw, gt, gf, err, atol
+
+
 def phase_labels(torch, pseudo_label):
-    """Kernel 2 at the three label builds of Step B (B = 32, K = 21)."""
+    """Kernel 2: the three label builds of Step B (B = 32, K = 21), each with
+    GT and GF alone, timed; every GF kind with and without a fused target
+    and normalisation at a small shape; the largest shapes, staged (K = 55 at
+    90²) and on the second pass (K = 64 at 90²)."""
     launches_before, rows = pseudo_label.launches, []
     for size, reach, gf_kind, fused, normalize in LABEL_SHAPES:
-        g = torch.Generator(device="cuda").manual_seed(size)
-        peaks = torch.randint(0, size, (BATCH, JOINTS, 2), dtype=torch.int32, device="cuda",
-                              generator=g)
-        target = None
-        if fused:
-            target = torch.rand((BATCH, size, size, JOINTS), device="cuda", generator=g)
-        kw = dict(out_size=size, reach=reach, gf_kind=gf_kind, normalize=normalize)
-        gt, gf = pseudo_label.pseudo_labels_cuda(peaks, target, **kw)
-        gt_ref, gf_ref = pseudo_label.pseudo_labels_plain(peaks, target, **kw)
-        torch.cuda.synchronize()
-        atol = 1e-5 if fused else 1e-6
-        err = float((gf - gf_ref).abs().max())
-        if not torch.equal(gt, gt_ref):
-            raise AssertionError(f"labels {size}²: GT differs from plain")
-        if not err <= atol:
-            raise AssertionError(f"labels {size}²: GF max abs err {err} > {atol}")
-        kernel = lambda: pseudo_label.pseudo_labels_cuda(peaks, target, **kw)  # noqa: E731
+        peaks, target, kw, gt, gf, err, atol = label_case(
+            torch, pseudo_label, BATCH, size, JOINTS, reach, gf_kind, fused, normalize, size)
+        full = lambda: pseudo_label.pseudo_labels_cuda(peaks, target, **kw)  # noqa: E731
+        gf_only = lambda: pseudo_label.pseudo_labels_cuda(  # noqa: E731
+            peaks, target, with_gt=False, **kw)
         plain = lambda: pseudo_label.pseudo_labels_plain(peaks, target, **kw)  # noqa: E731
         bound_ms, bound_by = labels_bound_ms(BATCH, size, gf_kind, fused, normalize, gt)
-        rows.append({"shape": [BATCH, size, size, JOINTS], "gf_kind": gf_kind, "fused": fused,
-                     "normalize": normalize, "max_abs_err": err, "atol": atol,
-                     "ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain),
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                     "call_ms": host_ms(torch, kernel)})
-    line("phase 2 pseudo-label kernel vs plain (GT torch.equal, GF atol)",
-         {"shapes": rows, "launches": pseudo_label.launches - launches_before})
-    # the 64² build is the largest of an iteration; the error is the worst
-    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+        gf_bound_ms, _ = labels_bound_ms(BATCH, size, gf_kind, fused, normalize, gt,
+                                         with_gt=False)
+        row = {"shape": [BATCH, size, size, JOINTS], "gf_kind": gf_kind, "fused": fused,
+               "normalize": normalize, "max_abs_err": err, "atol": atol,
+               "ms": cuda_ms(torch, full), "gf_only_ms": cuda_ms(torch, gf_only),
+               "plain_ms": cuda_ms(torch, plain), "bound_ms": bound_ms, "bound_by": bound_by,
+               "gf_only_bound_ms": gf_bound_ms, "library_ms": None, "call_ms": host_ms(torch, full)}
+        row.update(over_bound=row["ms"] / bound_ms, gf_only_over_bound=row["gf_only_ms"] / gf_bound_ms)
+        rows.append(row)
+
+    kinds = []
+    for i, gf_kind in enumerate(pseudo_label.GF_KINDS):
+        for fused in (False, True):
+            for normalize in (False, True):
+                *_, err, atol = label_case(torch, pseudo_label, 4, 24, JOINTS, 4, gf_kind, fused,
+                                           normalize, 70 + 4 * i + 2 * fused + normalize, low=-3)
+                kinds.append({"gf_kind": gf_kind, "fused": fused, "normalize": normalize,
+                              "max_abs_err": err, "atol": atol})
+    largest = []
+    for joints in (55, 64):
+        geometry = pseudo_label.launch_geometry(90, joints)
+        *_, err, atol = label_case(torch, pseudo_label, 4, 90, joints, 6, "union_minus", True,
+                                   True, 90 + joints)
+        largest.append({"shape": [4, 90, 90, joints], "staged": geometry["staged"],
+                        "shared_bytes": geometry["shared_bytes"], "max_abs_err": err, "atol": atol})
+    line("phase 2 pseudo-label kernel vs plain (GT torch.equal, GF atol)", {
+        "shapes": rows, "kinds_24x24": kinds, "largest": largest,
+        "launches": pseudo_label.launches - launches_before})
+    # the path writes GF alone; its 64² build is the largest of an iteration,
+    # and the error is the worst of every case
+    worst = max([r["max_abs_err"] for r in rows + kinds + largest])
+    top = rows[0]
+    return dict(top, ms=top["gf_only_ms"], bound_ms=top["gf_only_bound_ms"], max_abs_err=worst)
 
 
 def build_model(torch, models, seed: int = 7):

@@ -22,47 +22,85 @@
 // Values reach 65535, so the blend stays below 2^24 * 256 < 2^31 in int32.
 //
 // What bounds them: bytes. rotate3_fused reads 8.0 MB of uint8 (B=32, S=288)
-// and writes 31.9 MB of float32, ~12 us at 3.35 TB/s; rotate3 and shear on
-// the padded (32, 3, 412, 412) uint16 canvas read and write 32.6 MB each,
-// ~19.5 us. The arithmetic is a few us at the float32 rate
-// (chip_smoke.py:rotation_bound_ms, u16_bound_ms).
+// and writes 31.9 MB of float32, ~12 us at 3.35 TB/s (float32 input: 31.9 MB
+// read, ~19 us); rotate3 and shear on the padded (32, 3, 412, 412) uint16
+// canvas read and write 32.6 MB each, ~19.5 us. The arithmetic is a few us at
+// the float32 rate (chip_smoke.py:rotation_bound_ms, u16_bound_ms).
 //
-// Design. The TPU kernels stage a whole canvas (and the rotation's two
-// intermediates) in VMEM and shear it with masked static shifts; a Hopper SM
-// has no room for a 412^2 x 3 canvas per image and no need for the shifts.
-// One thread computes one output pixel, all C channels, straight from the
-// source: ShX's output needs 2 taps of its input, so the rotation's output
-// needs 2 taps of S2, 4 of S1 and 8 of P. The thread computes the lines'
-// shifts and weights once (walk3), maps the taps to source pixels (the
-// canvas classes below: uint8 or float32 HWC through the padding and the
-// quarter-turn, or a uint16 CHW canvas as it is), and replays the blends for
-// each channel with the same integer arithmetic (replay3). A tap outside the
-// canvas is 0, and a blend of two zeros is 0, so an out-of-canvas S1 or S2
-// tap needs no special case. The stores write either the float crop or the
-// whole uint16 canvas. Neighbouring threads read neighbouring source pixels,
-// which the L1 cache serves; the stores are coalesced along x.
+// The walk. ShX's output needs 2 taps of its input, so the rotation's output
+// pixel needs 2 taps of S2, 4 of S1 and 8 of P. walk3 computes the lines'
+// shifts and weights and maps the taps to pixels of a canvas class (where a
+// pixel of P lives); replay3 replays the 7 blends per channel with the same
+// integer arithmetic. A tap outside the canvas is 0, and a blend of two zeros
+// is 0, so an out-of-canvas S1 or S2 tap needs no special case.
 //
-// What holds it back: the fused uint8 mode runs at ~6.6x its byte bound on
-// the H100 (PERF.md; 64 registers). The per-line shift and weight are
-// recomputed by every thread that needs them instead of once per line, and
-// the taps are loads of one channel each. A per-block table of the lines and
-// whole-pixel loads are the next steps.
+// rotate3_fused: a tiled rotation from the taps staged in shared memory.
+//   What held the previous design back (one thread per output pixel, 32x8
+//   blocks, 0.0789 ms = 6.6x the bound at (32, 288^2, 3) uint8): each thread
+//   issued 24 one-byte __ldg loads (8 taps x 3 channels), and for odd
+//   quarter-turns neighbouring output columns map to source pixels S*C bytes
+//   apart, so each tap load of a warp touched up to 32 sectors.
+//   The design. One block of 256 threads computes one 32x32 output tile, 4
+//   consecutive columns a thread. The shift d(l) = clip(floor(__fmul_rn(t,
+//   l - c))) is monotone in l for a fixed slope (a correctly rounded
+//   product, floor and clip are all monotone), so the tile's rows give an
+//   interval of S2 columns, those an interval of S1 rows (tile_footprint),
+//   and each S1 row is read by an interval of those S2 columns (two binary
+//   searches in the block's table of column shifts). The block stages one
+//   packed word per P tap of each S1 row in that interval, and no other: at
+//   most 1666 words at the path's slopes, a third of the rows x columns box
+//   of P around them (67 x 77). A word packs the pixel's channels (their bytes
+//   in 32 bits for uint8, to_fixed of each in 16 bits of 64 for float32), 0
+//   outside the image; rows outside the image share one run of zeros. uint8
+//   crops copy the box's source rows (contiguous in HWC) into shared memory
+//   first with 16-byte cp.async, and a warp per S1 row packs its words from
+//   them, each thread a run of consecutive words (its first row by a binary
+//   search), through a per-row affine map of word to source pixel; float32
+//   crops pack from global memory. Each tap is then one shared load at
+//   A(row) + column with no bounds test; the first blend of the two taps of
+//   an S1 value runs on channel pairs (u (256 - w) + v w < 2^16 for bytes,
+//   so channels 0 and 2 share the two halves of one 32-bit product), and
+//   the crop is stored as float4 runs. A tile whose S2 columns the canvas
+//   does not cut (all but edge tiles) takes a copy of the blends without
+//   the column test; the path's 3 channels are a compile-time count.
+//   Sizing: at the path's slopes (|a| <= tan 22.5, |b| <= sin 45) a tile
+//   stages at most 1666 words (6.5 KB uint8, 13 KB float32) beside 18 KB of
+//   raw rows (uint8) and 11 KB of tables; ops/shear.py:stage_capacity and
+//   stage_raw_bytes size the dynamic shared memory, and 40 registers a
+//   thread let 6 blocks share an SM. The kernel takes any slope: a tile
+//   whose words would exceed the capacity (or any tile when C > 4) takes
+//   the direct walk of the previous design (walk3 with __ldg taps) inside
+//   the same kernel, so the result is exact for every input; its tiles can
+//   be counted (direct_tiles).
+//   Measured (chip_smoke.py phase 2, run in turns with the previous design's
+//   own chip_smoke.py on one card, NVIDIA H100 80GB HBM3, 700.00 W):
+//   uint8 0.0338 ms against the previous design's 0.0789 and a 0.0119 ms
+//   byte bound (2.8x); float32 0.0498 ms against 0.0918 and 0.0190 (2.6x).
+//   What holds it: not bytes but per-block work, each step (footprint and
+//   tables, staging, blends and stores) a chain of dependent shared loads
+//   between barriers, at 40 registers and 11 KB of static tables a block.
+
+// rotate3_u16 and shear_u16 keep the per-pixel design (one thread per output
+// pixel of a uint16 CHW canvas, whole canvas stored).
 //
-// Exactness, shared by all three kernels through line_shear and blend: s,
-// floor and the weight are float32 as in the JAX package, and the product
-// t * (l - c) is __fmul_rn, so nvcc cannot contract it with the subtraction
-// after it into an FMA; rintf rounds half to even like jnp.round /
-// torch.round. The float input converts as clip(rint(x * 256), 0, 65535),
-// jnp.round then jnp.clip. Each result is bit-identical to its plain version
-// in ops/shear.py.
+// Exactness, shared by all kernels through line_shear and blend: s, floor and
+// the weight are float32 as in the JAX package, and the product t * (l - c)
+// is __fmul_rn, so nvcc cannot contract it with the subtraction after it into
+// an FMA; rintf rounds half to even like jnp.round / torch.round. The float
+// input converts as clip(rint(x * 256), 0, 65535), jnp.round then jnp.clip.
+// Each result is bit-identical to its plain version in ops/shear.py.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlockX = 32;
+constexpr int kBlockX = 32;  // the per-pixel kernels' blocks
 constexpr int kBlockY = 8;
+constexpr int kTile = 32;    // rotate3_fused: output tile side
+constexpr int kCols = 4;     // output columns per thread
+constexpr int kTileThreads = kTile * kTile / kCols;
+constexpr int kMaxStagedChannels = 4;
 
 struct Shear {
   int d;  // integer shift, in [-kmax, kmax]
@@ -89,6 +127,23 @@ __device__ __forceinline__ int to_fixed(float v) {
   return (int)fminf(fmaxf(s, 0.0f), 65535.0f);
 }
 
+// Pixel (i, j) of P = rot90(pad(image), q), n = S + 2 pad on a side, as
+// coordinates (y, x) of the unpadded image (possibly outside it); false when
+// (i, j) is outside P.
+__device__ __forceinline__ bool unturn(int q, int n, int pad, int i, int j,
+                                       int& y, int& x) {
+  if (i < 0 || i >= n || j < 0 || j >= n) return false;
+  switch (q) {
+    case 0: y = i; x = j; break;
+    case 1: y = j; x = n - 1 - i; break;
+    case 2: y = n - 1 - i; x = n - 1 - j; break;
+    default: y = n - 1 - j; x = i; break;
+  }
+  y -= pad;
+  x -= pad;
+  return true;
+}
+
 // ---- canvases: where pixel (i, j) of the canvas P lives and its 8.8 value.
 // at(b) binds image b of the batch; locate gives a pixel index or -1 for a
 // zero tap; load reads channel c of a located pixel.
@@ -113,17 +168,8 @@ struct HwcCanvas {
   }
 
   __device__ int locate(int i, int j) const {
-    const int n = size + 2 * pad;
-    if (i < 0 || i >= n || j < 0 || j >= n) return -1;
-    int y, x;  // coordinates in the padded canvas before the quarter-turn
-    switch (q) {
-      case 0: y = i; x = j; break;
-      case 1: y = j; x = n - 1 - i; break;
-      case 2: y = n - 1 - i; x = n - 1 - j; break;
-      default: y = n - 1 - j; x = i; break;
-    }
-    y -= pad;
-    x -= pad;
+    int y, x;
+    if (!unturn(q, size + 2 * pad, pad, i, j, y, x)) return -1;
     if (y < 0 || y >= size || x < 0 || x >= size) return -1;
     return y * size + x;
   }
@@ -133,7 +179,25 @@ struct HwcCanvas {
   }
 };
 
-// P is a (C, H, W) uint16 canvas as it is.
+// The packed word of a staged pixel.
+template <typename T>
+struct Packed;
+
+template <>
+struct Packed<uint8_t> {  // the channels' bytes, channel c at bits 8c
+  using Word = uint32_t;
+  using Lane = uint8_t;
+  __device__ static Lane lane(uint8_t v) { return v; }
+};
+
+template <>
+struct Packed<float> {  // to_fixed of the channels, channel c at bits 16c
+  using Word = unsigned long long;
+  using Lane = uint16_t;
+  __device__ static Lane lane(float v) { return (Lane)to_fixed(v); }
+};
+
+// ChwCanvas: P is a (C, H, W) uint16 canvas as it is.
 struct ChwCanvas {
   const uint16_t* image;
   int height, width, channels;
@@ -157,30 +221,7 @@ struct ChwCanvas {
   }
 };
 
-// ---- stores: the output grid, its offset into the canvas, and the write.
-
-// (B, C, S, S) float32: the canvas's centre S x S crop (offset pad) / 256.
-struct CropStore {
-  float* out;
-  int size, channels, pad;
-
-  __device__ int height() const { return size; }
-  __device__ int width() const { return size; }
-  __device__ int offset() const { return pad; }
-
-  __device__ CropStore at(int b) const {
-    CropStore s = *this;
-    s.out = out + (size_t)b * channels * size * size;
-    return s;
-  }
-
-  __device__ void store(int c, int y, int x, int v) const {
-    out[(size_t)c * size * size + (size_t)y * size + x] =
-        __fmul_rn((float)v, 1.0f / 256.0f);
-  }
-};
-
-// (B, C, H, W) uint16: the whole canvas.
+// (B, C, H, W) uint16: the whole canvas, the per-pixel kernels' store.
 struct U16Store {
   uint16_t* out;
   int h, w, channels;
@@ -235,16 +276,446 @@ __device__ __forceinline__ Walk3 walk3(const Canvas& p, int row, int col,
   return k;
 }
 
-template <class Canvas>
-__device__ __forceinline__ int replay3(const Canvas& p, const Walk3& k, int c) {
-  int v[8];
-  for (int i = 0; i < 8; ++i) v[i] = k.tap[i] < 0 ? 0 : p.load(k.tap[i], c);
+__device__ __forceinline__ int replay(const int (&v)[8], const Walk3& k) {
   int s1[4];
   for (int i = 0; i < 4; ++i) s1[i] = blend(v[2 * i], v[2 * i + 1], k.w1[i]);
   const int s2a = blend(s1[0], s1[1], k.w2[0]);
   const int s2b = blend(s1[2], s1[3], k.w2[1]);
   return blend(s2a, s2b, k.w3);
 }
+
+template <class Canvas>
+__device__ __forceinline__ int replay3(const Canvas& p, const Walk3& k, int c) {
+  int v[8];
+  for (int i = 0; i < 8; ++i) v[i] = k.tap[i] < 0 ? 0 : p.load(k.tap[i], c);
+  return replay(v, k);
+}
+
+// ---- rotate3_fused: the tiled kernel
+
+// What the taps of one output tile (rows [r0, r1], columns [c0, c1] of P)
+// can reach, in P's coordinates: the tile's S2 columns [c2lo, c2hi] cut to
+// the canvas, its S1 rows [s1lo, s1lo + rows1) (not cut: a row outside the
+// image is all zero taps), and the box of P (rows [i0, i0 + h), columns
+// [j0, j0 + w)) of their taps cut to the image, which sits at rows and
+// columns [pad, pad + S) of P whatever the quarter-turn; h = 0 when no tap
+// lands in the image.
+struct Footprint {
+  int c2lo, c2hi;
+  int s1lo, rows1;
+  int i0, j0, h, w;
+};
+
+__device__ Footprint tile_footprint(int n, int size, int pad, int r0, int r1, int c0,
+                                    int c1, float a, float b, int kmax_a, int kmax_b) {
+  Footprint f{0, -1, 0, 0, 0, 0, 0, 0};
+  const float c = 0.5f * (float)(n - 1);
+  // S2 columns of the tile's rows (ShX(a) of rows r0 .. r1)
+  const int e0 = line_shear(a, r0, c, kmax_a).d, e1 = line_shear(a, r1, c, kmax_a).d;
+  f.c2lo = max(c0 + min(e0, e1), 0);
+  f.c2hi = min(c1 + max(e0, e1) + 1, n - 1);
+  if (f.c2lo > f.c2hi) return f;
+  // S1 rows of those columns (ShY(b) of columns c2lo .. c2hi)
+  const int g0 = line_shear(b, f.c2lo, c, kmax_b).d, g1 = line_shear(b, f.c2hi, c, kmax_b).d;
+  f.s1lo = r0 + min(g0, g1);
+  f.rows1 = r1 + max(g0, g1) + 1 - f.s1lo + 1;
+  const int rlo = max(f.s1lo, pad), rhi = min(f.s1lo + f.rows1 - 1, pad + size - 1);
+  if (rlo > rhi) return f;
+  // P columns of those rows (ShX(a) of rows rlo .. rhi), cut to the image
+  const int h0 = line_shear(a, rlo, c, kmax_a).d, h1 = line_shear(a, rhi, c, kmax_a).d;
+  const int jlo = max(f.c2lo + min(h0, h1), pad);
+  const int jhi = min(f.c2hi + max(h0, h1) + 1, pad + size - 1);
+  if (jlo > jhi) return f;
+  f.i0 = rlo;
+  f.j0 = jlo;
+  f.h = rhi - rlo + 1;
+  f.w = jhi - jlo + 1;
+  return f;
+}
+
+// A shear line packed in one int for the block's tables: (d + kmax) << 9 | w.
+__device__ __forceinline__ int pack_line(Shear l, int kmax) { return (l.d + kmax) << 9 | l.w; }
+
+// One image pixel (C channels of T at p) as a packed word.
+template <typename T>
+__device__ __forceinline__ typename Packed<T>::Word pack_pixel(const T* __restrict__ p,
+                                                               int channels) {
+  using Word = typename Packed<T>::Word;
+  constexpr int kBits = 8 * sizeof(typename Packed<T>::Lane);
+  Word w = 0;
+#pragma unroll
+  for (int c = 0; c < kMaxStagedChannels; ++c)
+    if (c < channels) w |= (Word)Packed<T>::lane(__ldg(p + c)) << (kBits * c);
+  return w;
+}
+
+// The footprint's box turned back onto the image: source rows [ys0, ys1] and
+// columns [xs0, xs1]. Pixel (y, x) of the image is P's (i, j) =
+// (pad + y, pad + x) turned by q.
+struct SourceBox {
+  int ys0, ys1, xs0, xs1;
+};
+
+__device__ __forceinline__ SourceBox source_box(int q, int n, int pad, const Footprint& f) {
+  const int lo = pad, hi = n - 1 - pad;
+  const int i1 = f.i0 + f.h - 1, j1 = f.j0 + f.w - 1;
+  switch (q) {
+    case 0: return {f.i0 - lo, i1 - lo, f.j0 - lo, j1 - lo};  // i = pad + y, j = pad + x
+    case 1: return {f.j0 - lo, j1 - lo, hi - i1, hi - f.i0};  // i = hi - x, j = pad + y
+    case 2: return {hi - i1, hi - f.i0, hi - j1, hi - f.j0};  // i = hi - y, j = hi - x
+    default: return {hi - j1, hi - f.j0, f.i0 - lo, i1 - lo};  // i = pad + x, j = hi - y
+  }
+}
+
+__device__ __forceinline__ void copy_async16(void* dst, uintptr_t src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+constexpr int kMaxLines = kTileThreads;  // S1 rows and S2 columns a staged tile spans
+
+// The first of lines [0, count) whose packed shift (d + kmax) satisfies
+// pred, pred being false then true along the lines.
+template <class Pred>
+__device__ __forceinline__ int first_line(const int* lines, int count, Pred pred) {
+  int lo = 0, hi = count;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (pred(lines[mid] >> 9))
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return lo;
+}
+
+// The first blend, ShX(a) of P: S1 = blend(lo, hi, w) per channel of two
+// staged words. uint8 words hold the channels' bytes; blend(256 u, 256 v, w)
+// is u (256 - w) + v w exactly (the + 128 never reaches bit 8), at most
+// 255 * 256 < 2^16, so channels 0 and 2 (1 and 3) blend together in the two
+// 16-bit halves of one 32-bit product.
+__device__ __forceinline__ void first_blend(uint32_t lo, uint32_t hi, int w, int channels,
+                                            int (&s1)[kMaxStagedChannels]) {
+  constexpr uint32_t kEven = 0x00FF00FFu;
+  const uint32_t wl = (uint32_t)(256 - w), wh = (uint32_t)w;
+  const uint32_t even = (lo & kEven) * wl + (hi & kEven) * wh;
+  const uint32_t odd = ((lo >> 8) & kEven) * wl + ((hi >> 8) & kEven) * wh;
+  s1[0] = (int)(even & 0xFFFFu);
+  s1[1] = (int)(odd & 0xFFFFu);
+  s1[2] = (int)(even >> 16);
+  s1[3] = (int)(odd >> 16);
+}
+
+// float32 crops: to_fixed of each channel in a 16-bit lane, any 8.8 value.
+__device__ __forceinline__ void first_blend(unsigned long long lo, unsigned long long hi,
+                                            int w, int channels,
+                                            int (&s1)[kMaxStagedChannels]) {
+#pragma unroll
+  for (int c = 0; c < kMaxStagedChannels; ++c)
+    s1[c] = c < channels ? blend((int)((lo >> (16 * c)) & 0xFFFFu),
+                                 (int)((hi >> (16 * c)) & 0xFFFFu), w)
+                         : 0;
+}
+
+// v / 256 of an integer v in [0, 65535], exactly: 2^23 + v as a float's
+// bits, scaled by 2^-8 and less 2^15, in one FMA (no int-to-float convert).
+__device__ __forceinline__ float fixed_to_float(int v) {
+  return __fmaf_rn(__int_as_float(0x4B000000 | v), 1.0f / 256.0f, -32768.0f);
+}
+
+// The output tile's pixels from the staged words: each thread 4 consecutive
+// pixels of one row, from the 5 S2 columns they share (output(row, col)
+// blends S2(row, col + d3) and S2(row, col + d3 + 1)); S2(row, c2) blends S1
+// rows row + d2 and row + d2 + 1 of column c2, each a blend of two staged
+// words. kChecked: some column of the block lies outside the canvas (S2 = 0
+// there, as in walk3) or outside the image's last tile; otherwise every
+// thread's 5 columns are in [c2lo, c2hi] and the loads need no test.
+template <typename T, int kC, bool kChecked>
+__device__ __forceinline__ void tile_pixels(const typename Packed<T>::Word* words,
+                                            const int* line_b, const int2* row_tap, int cols2,
+                                            int c2lo, int row_origin, int row, int c2base,
+                                            int w3, int channels, int size, int xo0,
+                                            float* row_out, size_t plane) {
+  const int nc = kC ? kC : channels;
+  int s2[kCols + 1][kMaxStagedChannels];
+#pragma unroll
+  for (int t = 0; t <= kCols; ++t) {
+    const int c2 = c2base + t, k2 = c2 - c2lo;
+    const bool inside = !kChecked || (unsigned)k2 < (unsigned)cols2;
+    const int e2 = line_b[inside ? k2 : 0];
+    // the S1 row of u = 0 in row_tap: row + d2 - s1lo, with row_origin =
+    // s1lo + kmax_b taking the packing's offset off too
+    const int r = row + (e2 >> 9) - row_origin, w2 = e2 & 511;
+    int s1[2][kMaxStagedChannels];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int2 tap = row_tap[inside ? r + u : 0];
+      const typename Packed<T>::Word* at = words + (inside ? tap.x + c2 : 0);
+      first_blend(at[0], at[1], tap.y, nc, s1[u]);
+    }
+#pragma unroll
+    for (int c = 0; c < kMaxStagedChannels; ++c)
+      s2[t][c] = c < nc && inside ? blend(s1[0][c], s1[1][c], w2) : 0;
+  }
+  const bool whole = (size % kCols) == 0 && xo0 + kCols <= size;
+#pragma unroll
+  for (int c = 0; c < kMaxStagedChannels; ++c) {
+    if (c >= nc) break;
+    float v[kCols];
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) v[i] = fixed_to_float(blend(s2[i][c], s2[i + 1][c], w3));
+    float* dst = row_out + c * plane + xo0;
+    if (whole) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kCols; ++i)
+        if (xo0 + i < size) dst[i] = v[i];
+    }
+  }
+}
+
+// kC: the channel count when known at compile time (3), else 0 and the
+// channels argument holds it.
+// 6 blocks an SM (40 registers a thread): the phases of a block are short
+// chains of dependent loads, so the SM needs the other blocks' warps to
+// hide them
+template <typename T, int kC>
+__global__ void __launch_bounds__(kTileThreads, 6) rotate3_fused_kernel(
+    const T* __restrict__ image, const float* __restrict__ slope_a,
+    const float* __restrict__ slope_b, const int32_t* __restrict__ quarter,
+    float* __restrict__ out, int size, int channels, int pad, int kmax_a,
+    int kmax_b, int capacity, int raw_bytes, int* __restrict__ direct_tiles) {
+  using Word = typename Packed<T>::Word;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Word* words = reinterpret_cast<Word*>(smem);
+  __shared__ int line_b[kMaxLines];     // ShY(b) of S2 column c2lo + t, packed
+  __shared__ int2 row_tap[kMaxLines];   // {A, w1}: tap v of S1 row s1lo + t at column
+                                        // c2 is words[A + c2 + v]
+  __shared__ int4 row_words[kMaxLines];  // its words: first, count, in-image [lo, hi)
+  __shared__ int4 row_source[kMaxLines];  // where word o of it comes from
+  __shared__ int warp_words[kTileThreads / 32];
+  if (kC) channels = kC;
+
+  const int b = blockIdx.z;
+  const int n = size + 2 * pad;
+  const float center = 0.5f * (float)(n - 1);
+  const int ty0 = blockIdx.y * kTile, tx0 = blockIdx.x * kTile;
+  const int r0 = ty0 + pad, r1 = min(ty0 + kTile, size) - 1 + pad;
+  const int c0 = tx0 + pad, c1 = min(tx0 + kTile, size) - 1 + pad;
+  const float a = slope_a[b], sb = slope_b[b];
+  const int q = quarter[b] & 3;
+  const T* img = image + (size_t)b * size * size * channels;
+  // block-uniform: every thread computes the same footprint
+  const Footprint f = tile_footprint(n, size, pad, r0, r1, c0, c1, a, sb, kmax_a, kmax_b);
+  const int cols2 = max(f.c2hi - f.c2lo + 1, 0);
+  // the staged words: a run of zeros for the S1 rows outside the image, then
+  // each S1 row's interval of taps; each S2 column reads tile_rows + 1 S1
+  // rows, and each row's interval is one tap longer than its S2 columns
+  const int zero_run = cols2 + 1;
+  const int bound = zero_run + cols2 * (r1 - r0 + 2) + f.rows1;
+  const SourceBox box = source_box(q, n, pad, f);
+  // the raw bytes of each source row of the box (uint8), from its first
+  // 16-byte aligned chunk: raw_stride bytes a row, an odd number of chunks
+  // (a column of the box, read down the rows for odd quarter-turns, then
+  // spreads over 8 of the 16-byte bank groups, not 1)
+  const int run = (box.xs1 - box.xs0 + 1) * channels * (int)sizeof(T);
+  const int raw_stride = (((run + 15) / 16 + 1) | 1) * 16;
+  const int raw_rows = box.ys1 - box.ys0 + 1;
+  const bool staged = capacity > 0 && bound <= capacity && cols2 <= kMaxLines &&
+                      f.rows1 <= kMaxLines &&
+                      (sizeof(T) > 1 || f.h == 0 || raw_rows * raw_stride <= raw_bytes);
+
+  const int yo = ty0 + threadIdx.x / (kTile / kCols);
+  const int xo0 = tx0 + (threadIdx.x % (kTile / kCols)) * kCols;
+  const size_t plane = (size_t)size * size;
+  float* row_out = out + ((size_t)b * channels * size + yo) * size;  // channel 0
+
+  if (!staged) {  // the direct walk: taps straight from the image
+    if (threadIdx.x == 0 && direct_tiles != nullptr) atomicAdd(direct_tiles, 1);
+    if (yo >= size) return;
+    const HwcCanvas<T> p{img, quarter, size, channels, pad, q};
+    for (int i = 0; i < kCols; ++i) {
+      const int xo = xo0 + i;
+      if (xo >= size) break;
+      const Walk3 k = walk3(p, yo + pad, xo + pad, a, sb, kmax_a, kmax_b);
+      for (int c = 0; c < channels; ++c)
+        row_out[c * plane + xo] = __fmul_rn((float)replay3(p, k, c), 1.0f / 256.0f);
+    }
+    return;
+  }
+
+  // 1. the source rows' bytes (uint8) in flight, copied asynchronously in
+  // 16-byte chunks (a chunk that holds one byte of the row lies in the same
+  // allocation, whose base and size the allocator aligns to far more than 16
+  // bytes); the S2 columns' lines meanwhile
+  unsigned char* raw = smem + ((capacity * sizeof(Word) + 15) & ~(size_t)15);
+  if constexpr (sizeof(T) == 1) {
+    const int chunks = raw_stride / 16;
+    if (f.h > 0) {
+      for (int t = threadIdx.x; t < raw_rows * chunks; t += blockDim.x) {
+        const int r = t / chunks, chunk = t - r * chunks;
+        const uintptr_t start = reinterpret_cast<uintptr_t>(
+            img + ((size_t)(box.ys0 + r) * size + box.xs0) * channels);
+        const uintptr_t at = (start & ~(uintptr_t)15) + 16 * (uintptr_t)chunk;
+        if (at < start + run) copy_async16(raw + r * raw_stride + 16 * chunk, at);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+  }
+  if ((int)threadIdx.x < cols2)
+    line_b[threadIdx.x] = pack_line(line_shear(sb, f.c2lo + threadIdx.x, center, kmax_b), kmax_b);
+  __syncthreads();
+
+  // 2. a thread an S1 row: the S2 columns that read it, an interval because
+  // the shift d2 is monotone in the column (binary searches in line_b), and
+  // its words, one per P tap: the interval and one more column, or none for
+  // a row outside the image; their running sum in the warp
+  const int t = threadIdx.x;
+  const int r = f.s1lo + t;
+  int first = 0, count = 0;
+  if (t < f.rows1) {
+    // S2(row, c2) reads S1 rows row + d2 and row + d2 + 1, row in [r0, r1]
+    const int lo = r - r1 - 1 + kmax_b, hi = r - r0 + kmax_b;  // on d2 + kmax_b
+    int last;
+    if (sb >= 0.0f) {  // d2 non-decreasing along the columns
+      first = first_line(line_b, cols2, [&](int d) { return d >= lo; });
+      last = first_line(line_b, cols2, [&](int d) { return d > hi; }) - 1;
+    } else {
+      first = first_line(line_b, cols2, [&](int d) { return d <= hi; });
+      last = first_line(line_b, cols2, [&](int d) { return d < lo; }) - 1;
+    }
+    if (r >= pad && r < pad + size && first <= last) count = last - first + 2;
+  }
+  int end = count;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xFFFFFFFFu, end, o);
+    if ((t & 31) >= o) end += v;
+  }
+  if ((t & 31) == 31) warp_words[t >> 5] = end;
+  __syncthreads();
+
+  // 3. a thread an S1 row: where its words start, which of them lie in the
+  // image, and where each comes from; its entry of row_tap
+  if (t < f.rows1) {
+    int base = zero_run + end - count;
+    for (int k = 0; k < (t >> 5); ++k) base += warp_words[k];
+    const Shear l1 = line_shear(a, r, center, kmax_a);
+    const int c2first = f.c2lo + first;
+    row_tap[t] = make_int2(count > 0 ? base - c2first : -f.c2lo, l1.w);
+    // word o is P's (r, j0 + o): image pixel (y0 + dy o, x0 + dx o)
+    const int j0 = c2first + l1.d, hi = n - 1 - pad;
+    int y0, x0, dy = 0, dx = 0;
+    switch (q) {
+      case 0: y0 = r - pad; x0 = j0 - pad; dx = 1; break;
+      case 1: y0 = j0 - pad; x0 = hi - r; dy = 1; break;
+      case 2: y0 = hi - r; x0 = hi - j0; dx = -1; break;
+      default: y0 = hi - j0; x0 = r - pad; dy = -1; break;
+    }
+    // the moving coordinate v0 + step o stays in [0, size) for o in [lo, hi)
+    const int v0 = dx != 0 ? x0 : y0, step = dx + dy;
+    const int lo = max(step > 0 ? -v0 : v0 - size + 1, 0);
+    const int in_hi = min(step > 0 ? size - v0 : v0 + 1, count);
+    row_words[t] = make_int4(base, count, lo, in_hi);
+    if constexpr (sizeof(T) == 1) {
+      if ((q & 1) == 0)  // a source row: the byte of word o in the raw rows, affine
+        row_source[t] = make_int4(
+            (y0 - box.ys0) * raw_stride +
+                (((int)(reinterpret_cast<uintptr_t>(img) & 15) + (y0 * size + box.xs0) * channels) &
+                 15) +
+                (x0 - box.xs0) * channels,
+            dx * channels, 0, 0);
+      else  // a source column: the row y0 + dy o, at byte (x0 - xs0) C of the box
+        row_source[t] = make_int4(y0, dy, (x0 - box.xs0) * channels, 0);
+    } else {  // the pixel of word o in the image, affine
+      row_source[t] = make_int4((y0 * size + x0) * channels, (dy * size + dx) * channels, 0, 0);
+    }
+  }
+  if constexpr (sizeof(T) == 1) {
+    if (f.h > 0) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // 4. the words, a run of consecutive ones a thread (the run's first row by
+  // a binary search in the rows' first words): the image's pixels in P's
+  // orientation, 0 outside the image (a pixel clamped into the image is read
+  // and kept or dropped); the zero run
+  {
+    const int misalign = (int)(reinterpret_cast<uintptr_t>(img) & 15) + box.xs0 * channels;
+    int total = 0;
+    for (int k = 0; k < kTileThreads / 32; ++k) total += warp_words[k];
+    const int per = (total + kTileThreads - 1) / kTileThreads;
+    int at_word = zero_run + (int)threadIdx.x * per;
+    const int end_word = min(at_word + per, zero_run + total);
+    if (at_word < end_word) {
+      // the last row whose first word is at or before at_word holds it (a
+      // row with no words shares its first word with the next row)
+      int t = 0;
+      for (int hi = f.rows1 - 1; t < hi;) {
+        const int mid = (t + hi + 1) >> 1;
+        if (row_words[mid].x <= at_word)
+          t = mid;
+        else
+          hi = mid - 1;
+      }
+      int4 w = row_words[t], src = row_source[t];
+      for (; at_word < end_word; ++at_word) {
+        int o = at_word - w.x;
+        while (o >= w.y) {  // into the next row with words
+          ++t;
+          w = row_words[t];
+          src = row_source[t];
+          o = at_word - w.x;
+        }
+        Word word = 0;
+        if (w.z < w.w) {
+          const int oc = min(max(o, w.z), w.w - 1);
+          Word v;
+          if constexpr (sizeof(T) == 1) {
+            int at;
+            if (q & 1) {
+              const int y = src.x + src.y * oc;
+              at = (y - box.ys0) * raw_stride + ((misalign + y * size * channels) & 15) + src.z;
+            } else {
+              at = src.x + src.y * oc;
+            }
+            // its C <= 4 bytes sit in two aligned 32-bit words of the row's
+            // copy, and one byte permute packs them
+            const uint32_t* p = reinterpret_cast<const uint32_t*>(raw + (at & ~3));
+            v = __byte_perm(p[0], p[1], (unsigned)(at & 3) * 0x1111u + 0x3210u);
+          } else {
+            v = pack_pixel<T>(img + src.x + src.y * oc, channels);
+          }
+          word = (unsigned)(o - w.z) < (unsigned)(w.w - w.z) ? v : Word(0);
+        }
+        words[at_word] = word;
+      }
+    }
+    for (int k = threadIdx.x; k < zero_run; k += blockDim.x) words[k] = 0;
+  }
+  __syncthreads();
+  if (yo >= size) return;
+
+  const int row = yo + pad;
+  const Shear l3 = line_shear(a, row, center, kmax_a);
+  const int c2base = xo0 + pad + l3.d;
+  // every thread's columns in [c2lo, c2hi]: the tile is whole and its S2
+  // columns were not cut to the canvas
+  const int e0 = line_shear(a, r0, center, kmax_a).d, e1 = line_shear(a, r1, center, kmax_a).d;
+  const bool checked = c1 - c0 + 1 < kTile || f.c2lo != c0 + min(e0, e1) ||
+                       f.c2hi != c1 + max(e0, e1) + 1;
+  if (checked)
+    tile_pixels<T, kC, true>(words, line_b, row_tap, cols2, f.c2lo, f.s1lo + kmax_b, row, c2base, l3.w,
+                             channels, size, xo0, row_out, plane);
+  else
+    tile_pixels<T, kC, false>(words, line_b, row_tap, cols2, f.c2lo, f.s1lo + kmax_b, row, c2base, l3.w,
+                              channels, size, xo0, row_out, plane);
+}
+
+// ---- the per-pixel kernels of the uint16 modes
 
 template <class Canvas, class Store>
 __global__ void rotate3_kernel(Canvas canvas, Store output,
@@ -297,14 +768,24 @@ dim3 grid_of(int height, int width, int batch) {
 template <typename T>
 int launch_fused(const void* image, const void* slope_a, const void* slope_b,
                  const void* quarter, void* out, int batch, int size,
-                 int channels, int pad, int kmax_a, int kmax_b, void* stream) {
-  const HwcCanvas<T> canvas{(const T*)image, (const int32_t*)quarter, size,
-                            channels, pad, 0};
-  const CropStore store{(float*)out, size, channels, pad};
-  rotate3_kernel<<<grid_of(size, size, batch), dim3(kBlockX, kBlockY), 0,
-                   (cudaStream_t)stream>>>(canvas, store, (const float*)slope_a,
-                                           (const float*)slope_b, channels,
-                                           kmax_a, kmax_b);
+                 int channels, int pad, int kmax_a, int kmax_b, int capacity,
+                 int raw_bytes, void* direct_tiles, void* stream) {
+  if (channels > kMaxStagedChannels) capacity = raw_bytes = 0;
+  // the footprint's words, then the raw rows from a 16-byte boundary
+  const size_t smem =
+      (((size_t)capacity * sizeof(typename Packed<T>::Word) + 15) & ~(size_t)15) + raw_bytes;
+  // the path's three channels as a compile-time count, any other at run time
+  const auto kernel = channels == 3 ? rotate3_fused_kernel<T, 3> : rotate3_fused_kernel<T, 0>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int tiles = (size + kTile - 1) / kTile;
+  kernel<<<dim3(tiles, tiles, batch), kTileThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)image, (const float*)slope_a, (const float*)slope_b,
+      (const int32_t*)quarter, (float*)out, size, channels, pad, kmax_a, kmax_b,
+      capacity, raw_bytes, (int*)direct_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -317,21 +798,30 @@ int launch_fused(const void* image, const void* slope_a, const void* slope_b,
 // rotate3_fused_u8 / _f32 — image: (B, S, S, C) uint8 / float32 in [0, 255];
 // slope_a, slope_b: (B,) float32; quarter: (B,) int32 in [0, 4); out:
 // (B, C, S, S) float32. pad, kmax_a and kmax_b are data/device_aug.py's
-// rotation margins for S.
+// rotation margins for S. capacity: the packed words of shared memory a
+// block stages its footprint in, raw_bytes: the bytes it copies the source
+// rows into first (ops/shear.py:stage_capacity, stage_raw_bytes; 0 walks
+// every tile directly).
+// direct_tiles: null, or an int32 the kernel adds 1 to for each tile that
+// took the direct walk.
 extern "C" int rotate3_fused_u8(const void* image, const void* slope_a,
                                 const void* slope_b, const void* quarter,
                                 void* out, int batch, int size, int channels,
-                                int pad, int kmax_a, int kmax_b, void* stream) {
+                                int pad, int kmax_a, int kmax_b, int capacity,
+                                int raw_bytes, void* direct_tiles, void* stream) {
   return launch_fused<uint8_t>(image, slope_a, slope_b, quarter, out, batch,
-                               size, channels, pad, kmax_a, kmax_b, stream);
+                               size, channels, pad, kmax_a, kmax_b, capacity,
+                               raw_bytes, direct_tiles, stream);
 }
 
 extern "C" int rotate3_fused_f32(const void* image, const void* slope_a,
                                  const void* slope_b, const void* quarter,
                                  void* out, int batch, int size, int channels,
-                                 int pad, int kmax_a, int kmax_b, void* stream) {
+                                 int pad, int kmax_a, int kmax_b, int capacity,
+                                 int raw_bytes, void* direct_tiles, void* stream) {
   return launch_fused<float>(image, slope_a, slope_b, quarter, out, batch, size,
-                             channels, pad, kmax_a, kmax_b, stream);
+                             channels, pad, kmax_a, kmax_b, capacity, raw_bytes,
+                             direct_tiles, stream);
 }
 
 // rotate3_u16 — image, out: (B, C, H, W) uint16; slope_a, slope_b: (B,)

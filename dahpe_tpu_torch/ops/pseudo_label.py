@@ -24,7 +24,10 @@ LIB_NAME = "pseudo_label"
 SOURCES = ["pseudo_label.cu"]
 GF_KINDS = {"union_minus": 0, "inverse": 1, "union_others": 2}
 MAX_JOINTS = 64
-MAX_PIXELS = 8192  # the kernel's shared sum table: S*S floats
+MAX_PIXELS = 8192  # S*S the kernel takes (the sum table of S <= 90)
+CLUSTER_BLOCKS = 8  # blocks of one batch element (csrc/pseudo_label.cu)
+THREADS = 512
+SHARED_LIMIT = 232448 - 2048  # 227 KB a block may use, less the static peaks, maxima, Gaussians
 
 # kernel launches made by pseudo_labels_cuda since the last reset
 launches = 0
@@ -35,9 +38,26 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pseudo_labels_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch_geometry(size: int, joints: int) -> dict:
+    """How ``csrc/pseudo_label.cu`` covers one ``size x size x joints`` map:
+    a cluster of ``blocks`` blocks, block ``r`` owning pixels ``[r * pixels,
+    min((r + 1) * pixels, size²))`` with all joints, ``threads`` threads (a
+    multiple of ``joints``, so each thread keeps one joint), and
+    ``shared_bytes`` of dynamic shared memory: the sum table of its pixels
+    and, when ``staged``, their GF. Where staging does not fit the 227 KB a
+    block may use (``joints`` = 64 near ``size`` = 90), ``staged`` is False
+    and the kernel recomputes GF in a second pass."""
+    pixels = -(-size * size // CLUSTER_BLOCKS)
+    table = 4 * (-(-pixels // 4) * 4)  # padded so the staged run is 16-byte aligned
+    staged = table + 4 * pixels * joints <= SHARED_LIMIT
+    return {"blocks": CLUSTER_BLOCKS, "pixels": pixels,
+            "threads": (THREADS // joints) * joints, "staged": staged,
+            "shared_bytes": table + (4 * pixels * joints if staged else 0)}
 
 
 def pseudo_labels_plain(
@@ -49,10 +69,12 @@ def pseudo_labels_plain(
     reach: int = 6,
     gf_kind: str = "union_minus",
     normalize: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    with_gt: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
     """Plain PyTorch version: ``peaks (B, K, 2)`` int ``(x, y)`` in
     ``out_size`` units, optional ``fused_target (B, S, S, K)`` →
-    ``(gt, gf)``, each ``(B, S, S, K)`` float32."""
+    ``(gt, gf)``, each ``(B, S, S, K)`` float32; ``(None, gf)`` when
+    ``with_gt`` is False."""
     if gf_kind not in GF_KINDS:
         raise ValueError(f"unknown gf_kind {gf_kind!r}; choices: {sorted(GF_KINDS)}")
     valid = torch.ones(peaks.shape[:2], dtype=torch.float32, device=peaks.device)
@@ -64,7 +86,7 @@ def pseudo_labels_plain(
         gf = torch.clamp(gf + fused_target - gt * 100.0, 0.0, 1.0)
     if normalize:
         gf = heatmap.fuse_and_normalize_gf(gf, gt, None)
-    return gt, gf
+    return (gt if with_gt else None), gf
 
 
 def pseudo_labels_cuda(
@@ -76,10 +98,12 @@ def pseudo_labels_cuda(
     reach: int = 6,
     gf_kind: str = "union_minus",
     normalize: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    with_gt: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
     """Launch the CUDA kernel on the current stream; same contract as
     :func:`pseudo_labels_plain`. ``peaks`` must be contiguous int32 and
-    ``fused_target`` contiguous float32, on one CUDA device."""
+    ``fused_target`` contiguous float32, on one CUDA device. Without
+    ``with_gt`` the kernel writes GF alone."""
     global launches
     if not peaks.is_cuda:
         raise ValueError("pseudo_labels_cuda: peaks must be on a CUDA device")
@@ -107,18 +131,19 @@ def pseudo_labels_cuda(
             raise ValueError("pseudo_labels_cuda: fused_target must be contiguous")
     if not peaks.is_contiguous():
         raise ValueError("pseudo_labels_cuda: peaks must be contiguous")
-    gt = torch.empty(shape, dtype=torch.float32, device=peaks.device)
-    gf = torch.empty_like(gt)
-    if gt.numel() == 0:
+    gf = torch.empty(shape, dtype=torch.float32, device=peaks.device)
+    gt = torch.empty_like(gf) if with_gt else None
+    if gf.numel() == 0:
         return gt, gf
+    geometry = launch_geometry(int(out_size), k)
     lib = _lib()
     with torch.cuda.device(peaks.device):
         stream = torch.cuda.current_stream(peaks.device).cuda_stream
         err = lib.pseudo_labels_f32(
             peaks.data_ptr(), None if fused_target is None else fused_target.data_ptr(),
-            gt.data_ptr(), gf.data_ptr(), b, int(out_size), k,
+            None if gt is None else gt.data_ptr(), gf.data_ptr(), b, int(out_size), k,
             _two_sigma_sq(sigma), int(reach), GF_KINDS[gf_kind], int(bool(normalize)),
-            stream,
+            int(geometry["staged"]), geometry["shared_bytes"], stream,
         )
     if err != 0:
         raise RuntimeError(f"pseudo_labels kernel launch failed: cudaError {err}")
@@ -135,10 +160,12 @@ def pseudo_labels(
     reach: int = 6,
     gf_kind: str = "union_minus",
     normalize: bool = True,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    with_gt: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """The kernel for CUDA tensors, the plain version for CPU tensors;
+    ``(None, gf)`` when ``with_gt`` is False."""
     kw = dict(out_size=out_size, sigma=sigma, reach=reach, gf_kind=gf_kind,
-              normalize=normalize)
+              normalize=normalize, with_gt=with_gt)
     if peaks.device.type == "cuda":
         fused = None if fused_target is None else fused_target.to(torch.float32).contiguous()
         return pseudo_labels_cuda(peaks.to(torch.int32).contiguous(), fused, **kw)

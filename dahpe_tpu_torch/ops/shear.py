@@ -26,6 +26,7 @@ kernel mode counts its launches in a module counter.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -45,11 +46,20 @@ shear_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "rotate3_fused_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "rotate3_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rotate3_fused_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "rotate3_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "rotate3_u16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "shear_u16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
+
+
+# rotate3_fused's tiles (csrc/rotate3.cu: kTile) and the slope caps its
+# shared memory is sized for: just above the path's |a| <= tan(22.5°) and
+# |b| <= sin(45°) (data/device_aug.py:rotation_slopes), so float32 rounding
+# of the slopes stays inside
+TILE = 32
+SLOPE_CAPS = (0.4143, 0.7072)
+MAX_STAGED_CHANNELS = 4  # channels that fit one packed word (csrc/rotate3.cu)
 
 
 def _lib() -> ctypes.CDLL:
@@ -88,6 +98,70 @@ def rotation_geometry(size: int) -> tuple[int, int, int]:
     kmax_a = int(np.ceil(0.41422 * (n - 1) / 2.0)) + 1
     kmax_b = int(np.ceil(0.70711 * (n - 1) / 2.0)) + 1
     return pad, kmax_a, kmax_b
+
+
+def _spread(slope: float, lines: int) -> int:
+    """A bound on ``max d - min d`` of the integer shift
+    ``d(l) = clip(floor(t (l - c)))`` over ``lines + 1`` consecutive lines for
+    ``|t| <= slope``: ``ceil(|t| lines)``, plus 1 for the float32 rounding of
+    the two products."""
+    return math.ceil(abs(slope) * lines) + 1
+
+
+def stage_box_shape() -> tuple[int, int]:
+    """``(rows, cols)`` in ``P`` of the largest box of canvas pixels whose
+    taps one ``TILE x TILE`` output tile of ``rotate3_fused`` can reach at
+    slopes within ``SLOPE_CAPS``: the tile's rows give ``w2`` S2 columns,
+    those give ``h1`` S1 rows, those ``w1`` columns of ``P``
+    (``csrc/rotate3.cu:tile_footprint`` walks the same chain for the actual
+    slopes, and cuts it to the image). The kernel copies this box's source
+    rows (uint8) and stages only the taps inside it (:func:`stage_capacity`)."""
+    cap_a, cap_b = SLOPE_CAPS
+    w2 = TILE + _spread(cap_a, TILE - 1) + 1
+    h1 = TILE + _spread(cap_b, w2 - 1) + 1
+    w1 = w2 + _spread(cap_a, h1 - 1) + 1
+    return h1, w1
+
+
+def stage_words(cols2: int, tile_rows: int, rows1: int) -> int:
+    """Packed words ``csrc/rotate3.cu:rotate3_fused_kernel`` stages at most
+    for a tile of ``tile_rows`` rows whose taps span ``cols2`` S2 columns and
+    ``rows1`` S1 rows: a zero run of ``cols2 + 1`` words (the taps of S1 rows
+    outside the image), then for each S1 row one word per tap, the S2
+    columns that read it and one more. Each S2 column reads ``tile_rows + 1``
+    S1 rows, so the rows' columns add up to ``cols2 * (tile_rows + 1)``."""
+    return cols2 + 1 + cols2 * (tile_rows + 1) + rows1
+
+
+def stage_capacity(channels: int) -> int:
+    """Packed words of shared memory a block of ``rotate3_fused`` stages its
+    taps in: :func:`stage_words` of a full tile at slopes within
+    ``SLOPE_CAPS`` (the ``w2`` S2 columns and ``h1`` S1 rows of
+    :func:`stage_box_shape`'s chain), or 0 when ``channels`` do not fit one
+    word and every tile takes the kernel's direct walk."""
+    if channels > MAX_STAGED_CHANNELS:
+        return 0
+    w2 = TILE + _spread(SLOPE_CAPS[0], TILE - 1) + 1
+    h1, _ = stage_box_shape()
+    return stage_words(w2, TILE, h1)
+
+
+def stage_raw_bytes(channels: int, itemsize: int) -> int:
+    """Bytes of shared memory a block of ``rotate3_fused`` copies the source
+    rows of its footprint into before packing them (uint8 crops; float32
+    ones pack straight from global memory, 0): one row of the box (the
+    footprint turned back onto the image, ``h1 x w1`` or ``w1 x h1``) is a run
+    of ``cols * channels`` bytes, copied in the 16-byte aligned chunks that
+    cover it and one more, rounded up to an odd count (a column of the box
+    then spreads over the shared-memory banks), so
+    ``(((run + 15) // 16 + 1) | 1) * 16`` bytes a row."""
+    if channels > MAX_STAGED_CHANNELS or itemsize != 1:
+        return 0
+    h1, w1 = stage_box_shape()
+
+    def rows(count, cols):
+        return count * (((cols * channels + 15) // 16 + 1) | 1) * 16
+    return max(rows(h1, w1), rows(w1, h1))
 
 
 def _to_fixed(x: torch.Tensor) -> torch.Tensor:
@@ -179,10 +253,17 @@ def rotate3_fused_cuda(
     pad: int,
     kmax_a: int,
     kmax_b: int,
+    direct_tiles: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; same contract as
     :func:`rotate3_fused_plain` for contiguous uint8 or float32 ``images``,
-    float32 slopes and int32 quarter-turns, all on one CUDA device."""
+    float32 slopes and int32 quarter-turns, all on one CUDA device.
+
+    Each block stages its tile's taps in :func:`stage_capacity` words of
+    shared memory (and :func:`stage_raw_bytes` of source rows); a tile that
+    needs more takes the kernel's direct walk, with the same result.
+    ``direct_tiles``, an int32 ``(1,)`` CUDA tensor, gets 1 added for each
+    tile that took the direct walk."""
     global launches, fused_f32_launches
     args = (images, slope_a, slope_b, quarter)
     _check_cuda("rotate3_fused_cuda", args)
@@ -197,16 +278,22 @@ def rotate3_fused_cuda(
         raise ValueError("rotate3_fused_cuda: need float32 slopes and int32 quarter-turns")
     if not all(tuple(t.shape) == (b,) for t in args[1:]):
         raise ValueError(f"rotate3_fused_cuda: slopes and quarter-turns must be ({b},)")
+    if direct_tiles is not None and (direct_tiles.dtype != torch.int32
+                                     or direct_tiles.device != images.device):
+        raise ValueError("rotate3_fused_cuda: direct_tiles must be int32 beside the images")
     out = torch.empty((b, c, size, size), dtype=torch.float32, device=images.device)
     if out.numel() == 0:
         return out
+    capacity = stage_capacity(c)
+    raw_bytes = stage_raw_bytes(c, images.element_size())
     lib = _lib()
     fn = lib.rotate3_fused_u8 if images.dtype == torch.uint8 else lib.rotate3_fused_f32
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
         _check_launch(fn(
             images.data_ptr(), slope_a.data_ptr(), slope_b.data_ptr(), quarter.data_ptr(),
-            out.data_ptr(), b, size, c, int(pad), int(kmax_a), int(kmax_b), stream,
+            out.data_ptr(), b, size, c, int(pad), int(kmax_a), int(kmax_b), int(capacity),
+            raw_bytes, None if direct_tiles is None else direct_tiles.data_ptr(), stream,
         ), "rotate3_fused")
     if images.dtype == torch.uint8:
         launches += 1

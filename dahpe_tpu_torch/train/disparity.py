@@ -72,7 +72,7 @@ def _target(
     _, gf = pseudo_label.pseudo_labels(
         peaks // scale, None if fused_target is None else fused_target.detach(),
         out_size=y.shape[-3] // scale, reach=gaussian_window_reach(2.0, window_factor),
-        gf_kind=gf_kind, normalize=normalize,
+        gf_kind=gf_kind, normalize=normalize, with_gt=False,
     )
     return gf
 
