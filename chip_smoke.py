@@ -12,7 +12,8 @@ line, fail the run by raising:
    (one ``nvcc`` per library, all started together);
 2. every CUDA kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with its time, the plain time and the
-   least time the card could take (its bound): the Gaussian targets, the
+   least time the card could take (its bound): the Gaussian targets (the
+   path's three shapes timed, and odd shapes, reaches, peaks and flags), the
    Paeth rotation of the training producer (uint8, and its float32 mode;
    every quarter-turn, the path's extreme slopes and slopes beyond them,
    whose tiles take the kernel's direct walk, sizes 288, 256 and 100, one
@@ -20,7 +21,9 @@ line, fail the run by raising:
    GF alone, every GF kind with and without fusion and normalisation, and
    the largest shapes), and the rotation kernel's two uint16 modes (one
    shear on either axis, the three-shear rotation) on the padded canvas of
-   the 288² store, with two identities between the modes;
+   the 288² store, the rotation also at the extreme slopes and beyond them,
+   on non-square canvases and at 1 and 5 channels, with two identities
+   between the modes;
 3. serving: ``MultiHeadPoseResNet(resnet101)`` at full width (256² frames,
    64² heatmaps, 21 joints) with seeded random weights answers uint8
    requests of 1, 8 and 32 frames through ``make_predict_fn``, checked
@@ -111,7 +114,7 @@ def host_ms(torch, fn, iters: int = 100) -> float:
 
 
 PORT_KERNELS = ("render_gaussian_kernel", "pseudo_labels_kernel", "rotate3_fused_kernel",
-                "rotate3_kernel")
+                "rotate3_u16_kernel")
 
 
 def ptxas_summary(log: str) -> dict[str, str]:
@@ -178,11 +181,13 @@ def phase_device(torch, build):
     return smi
 
 
-def gaussian_inputs(torch, b, size, seed):
+def gaussian_inputs(torch, b, size, seed, joints=JOINTS, width=None):
     """Peaks with negative and >= size coordinates and ~20% invalid joints."""
     rng = np.random.default_rng(seed)
-    mu = rng.integers(-8, size + 8, size=(b, JOINTS, 2)).astype(np.int32)
-    valid = (rng.uniform(size=(b, JOINTS)) > 0.2).astype(np.float32)
+    width = size if width is None else width
+    mu = np.stack([rng.integers(-8, width + 8, size=(b, joints)),
+                   rng.integers(-8, size + 8, size=(b, joints))], axis=-1).astype(np.int32)
+    valid = (rng.uniform(size=(b, joints)) > 0.2).astype(np.float32)
     return torch.from_numpy(mu).cuda(), torch.from_numpy(valid).cuda()
 
 
@@ -201,19 +206,52 @@ def gaussian_bound_ms(b, size, valid, got):
 
 
 def store_zero(torch, gaussian, out):
-    """A call that launches the kernel file's zero-store yardstick over
-    ``out`` (not counted as a kernel launch: it computes nothing of the path)."""
+    """A call that launches the kernel file's zero-store yardstick over the
+    (B, H, W, K) map ``out`` at the kernel's launch geometry (not counted as
+    a kernel launch: it computes nothing of the path)."""
     fn = gaussian._lib().render_gaussian_store_zero_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
-        if fn(out.data_ptr(), out.numel(), stream) != 0:
+        if fn(out.data_ptr(), *out.shape, stream) != 0:
             raise RuntimeError("store_zero yardstick launch failed")
     return launch
 
 
+def gaussian_cases(torch):
+    """``(name, mu, valid, height, width, reach)`` beyond the path's shapes:
+    H != W, an odd W with K = 5 (rows, and the map, not a multiple of 4
+    floats), rows shorter than a store, one image, reach 0, a reach above
+    the map (inside the kernel's table and beyond it), 512 joints, peaks far
+    outside the map, NaN and negative ``valid``."""
+    cases = []
+    for name, (b, h, w, k, reach) in {
+            "H != W": (4, 48, 40, JOINTS, 6), "K = 5, odd W": (3, 17, 31, 5, 4),
+            "W K = 3": (2, 5, 3, 1, 1), "B = 1": (1, 64, 64, JOINTS, 6),
+            "reach 0": (8, 32, 32, JOINTS, 0), "reach 14 > map": (4, 12, 10, JOINTS, 14),
+            "reach 20, beyond the table": (4, 16, 16, JOINTS, 20),
+            "K = 512": (2, 24, 20, 512, 5)}.items():
+        mu, valid = gaussian_inputs(torch, b, h, seed=len(cases) + 30, joints=k, width=w)
+        cases.append((name, mu, valid, h, w, reach))
+    rng = np.random.default_rng(40)
+    mu = rng.integers(-8, 40, size=(4, JOINTS, 2)).astype(np.int32)
+    far = np.array([2**31 - 1, -(2**31) + 2**20, 10**6, -10**6, 40, -7])
+    mu.reshape(-1)[::3] = np.resize(far, mu.reshape(-1)[::3].shape)
+    cases.append(("far-off peaks", torch.from_numpy(mu).cuda(),
+                  torch.ones((4, JOINTS), device="cuda"), 32, 32, 6))
+    mu, _ = gaussian_inputs(torch, 4, 32, seed=41)
+    odd = np.array([np.nan, -1.0, 0.5, 2.0, 0.0, -0.0, np.inf], dtype=np.float32)
+    cases.append(("NaN and negative valid", mu,
+                  torch.from_numpy(np.resize(odd, (4, JOINTS))).cuda(), 32, 32, 6))
+    return cases
+
+
 def phase_gaussian(torch, gaussian):
+    """Kernel 1 at the path's three shapes, timed beside two yardsticks (zeros
+    stored at the kernel's own launch geometry, a PyTorch fill of the same
+    bytes), then :func:`gaussian_cases`; each ``torch.equal`` to the plain
+    version."""
     launches_before, rows = gaussian.launches, []
     for b, size, reach in GAUSSIAN_SHAPES:
         mu, valid = gaussian_inputs(torch, b, size, seed=size)
@@ -221,30 +259,34 @@ def phase_gaussian(torch, gaussian):
         got = gaussian.render_gaussian_cuda(mu, valid, **kw)
         ref = gaussian.render_gaussian_plain(mu, valid, **kw)
         torch.cuda.synchronize()
-        if not torch.equal(got == 0, ref == 0):
-            raise AssertionError(f"gaussian {size}²: zero pattern differs")
-        err = float((got - ref).abs().max())
-        if not err <= 1e-6:
-            raise AssertionError(f"gaussian {size}²: max abs err {err} > 1e-6")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"gaussian {size}²: kernel differs from plain, max abs "
+                                 f"{float((got - ref).abs().max())}")
         kernel = lambda: gaussian.render_gaussian_cuda(mu, valid, **kw)  # noqa: E731
         plain = lambda: gaussian.render_gaussian_plain(mu, valid, **kw)  # noqa: E731
         ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
         call_ms, plain_call_ms = host_ms(torch, kernel), host_ms(torch, plain)
-        # yardsticks, not the same function: zeros written at the kernel's own
-        # launch geometry, and a PyTorch fill of the same bytes
         store_ms = cuda_ms(torch, store_zero(torch, gaussian, got))
         fill_ms = cuda_ms(torch, lambda: torch.empty_like(got).fill_(0.0))
         bound_ms, bound_by = gaussian_bound_ms(b, size, valid, got)
         rows.append({
-            "shape": [b, size, size, JOINTS], "reach": reach, "max_abs_err": err,
+            "shape": [b, size, size, JOINTS], "reach": reach, "max_abs_err": 0.0,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+            "over_bound": ms / bound_ms, "call_ms": call_ms, "plain_call_ms": plain_call_ms,
             "store_ms": store_ms, "fill_ms": fill_ms,
         })
-    line("phase 2 gaussian kernel vs plain (tolerance 1e-6, same zeros)",
-         {"shapes": rows, "launches": gaussian.launches - launches_before})
-    # the main path renders 64² targets; the error is the worst of the scales
-    return dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
+    cases = []
+    for name, mu, valid, h, w, reach in gaussian_cases(torch):
+        kw = dict(height=h, width=w, sigma=SIGMA, reach=reach)
+        got = gaussian.render_gaussian_cuda(mu, valid, **kw)
+        ref = gaussian.render_gaussian_plain(mu, valid, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"gaussian {name}: kernel differs from plain")
+        cases.append(name)
+    line("phase 2 gaussian kernel vs plain (torch.equal)",
+         {"shapes": rows, "cases_equal": cases, "launches": gaussian.launches - launches_before})
+    return rows[0]
 
 
 def rotation_bound_ms(b, size, channels, in_bytes=1):
@@ -387,13 +429,33 @@ def phase_rotate(torch, shear, device_aug):
     return rows[0], rows[1]
 
 
+def u16_case(torch, shear, shape, a, b, kmax_a, kmax_b, seed):
+    """One full-range uint16 canvas through ``rotate3_cuda`` against
+    ``rotate3_plain`` (``torch.equal``); returns the tiles that took the
+    kernel's direct walk."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    canvas = shear.i32_to_u16(torch.randint(0, 65536, shape, dtype=torch.int32, device="cuda",
+                                            generator=g))
+    direct = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = shear.rotate3_cuda(canvas, a, b, kmax_a=kmax_a, kmax_b=kmax_b, direct_tiles=direct)
+    ref = shear.rotate3_plain(canvas, a, b, kmax_a=kmax_a, kmax_b=kmax_b)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+        raise AssertionError(f"rotate3 (uint16) {tuple(shape)}: kernel differs from plain")
+    return int(direct.item())
+
+
 def phase_shears(torch, shear):
     """Kernels 5 and 4, the rotation kernel's uint16 modes, at the padded
     canvas of the 288² store (32, 3, 412, 412) with the path's shift bounds,
     full-range values and slopes up to ±tan(22.5°) / ±sin(45°): each shear
-    axis and the three-shear rotation against their plain versions, then
-    ``rotate3 == shear(shear(shear()))`` and ``crop(rotate3(pad(to_fixed(x))))
-    / 256 == rotate3_fused(x)`` on the card."""
+    axis and the three-shear rotation against their plain versions (every
+    tile of the rotation staged); then the rotation's cases: the path's
+    extreme slopes, slopes beyond them (tiles on the direct walk), non-square
+    canvases (one of them with rows not a multiple of 4 pixels), 1 and 5
+    channels (5 walk every tile directly); then ``rotate3 ==
+    shear(shear(shear()))`` and ``crop(rotate3(pad(to_fixed(x)))) / 256 ==
+    rotate3_fused(x)`` on the card."""
     pad, kmax_a, kmax_b = shear.rotation_geometry(RAW)
     n = RAW + 2 * pad
     shape = (BATCH, 3, n, n)
@@ -422,17 +484,45 @@ def phase_shears(torch, shear):
             "ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain, iters=10, warmup=2),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     kw = dict(kmax_a=kmax_a, kmax_b=kmax_b)
-    got = shear.rotate3_cuda(canvas, a, b, **kw)
+    direct = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = shear.rotate3_cuda(canvas, a, b, direct_tiles=direct, **kw)
     ref = shear.rotate3_plain(canvas, a, b, **kw)
     torch.cuda.synchronize()
     if not same(got, ref):
         raise AssertionError("rotate3 (uint16): kernel differs from plain")
+    if int(direct.item()) != 0:
+        raise AssertionError(f"rotate3 (uint16): {int(direct.item())} tiles off the staged path "
+                             f"at the path's slopes")
     kernel = lambda: shear.rotate3_cuda(canvas, a, b, **kw)  # noqa: E731
     plain = lambda: shear.rotate3_plain(canvas, a, b, **kw)  # noqa: E731
     bound_ms, bound_by = u16_bound_ms(shape, 3)
     rows["rotate3"] = {"shape": list(shape), "kmax": [kmax_a, kmax_b], "max_abs_err": 0.0,
                        "ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain, iters=10, warmup=2),
                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    rows["rotate3"]["over_bound"] = rows["rotate3"]["ms"] / bound_ms
+
+    def cycle(count, values):
+        return torch.tensor([values[i % len(values)] for i in range(count)], device="cuda")
+
+    extreme = (cycle(8, [A_MAX, -A_MAX, -A_MAX, A_MAX]), cycle(8, [B_MAX, B_MAX, -B_MAX, -B_MAX]))
+    beyond = (cycle(8, [0.9, -1.3, 0.6, -0.5]), cycle(8, [1.4, -0.95, -2.0, 1.1]))
+    cases = {"path extremes 412²": ((8, 3, n, n), extreme),
+             "beyond the caps 412²": ((8, 3, n, n), beyond),
+             "non-square 300 x 412": ((8, 3, 300, n), extreme),
+             "non-square 257 x 301": ((8, 3, 257, 301), extreme),
+             "beyond the caps 257 x 301": ((8, 3, 257, 301), beyond),
+             "1 channel": ((8, 1, n, n), extreme), "5 channels": ((8, 5, 160, 200), extreme)}
+    direct_tiles = {}
+    for i, (name, (case_shape, (ca, cb))) in enumerate(cases.items()):
+        direct_tiles[name] = u16_case(torch, shear, case_shape, ca.float(), cb.float(),
+                                      kmax_a, kmax_b, 60 + i)
+    staged = [name for name in cases if "beyond" not in name and "5 channels" not in name]
+    if any(direct_tiles[name] for name in staged):
+        raise AssertionError(f"rotate3 (uint16): tiles off the staged path at the path's slopes "
+                             f"{direct_tiles}")
+    if not all(direct_tiles[name] for name in cases if name not in staged):
+        raise AssertionError(f"rotate3 (uint16): no tile took the direct walk beyond the caps "
+                             f"or at 5 channels {direct_tiles}")
 
     # identities between the modes, on the card
     three = shear.shear_cuda(shear.shear_cuda(shear.shear_cuda(canvas, a, kmax=kmax_a, axis=2),
@@ -453,6 +543,9 @@ def phase_shears(torch, shear):
     line("phase 2 uint16 shear modes vs plain (torch.equal) and identities", {
         "rows": rows, "identities": {"rotate3 == shear x3": True,
                                      "crop(rotate3(pad(to_fixed)))/256 == rotate3_fused": True},
+        "rotate3_cases_equal": list(cases), "rotate3_direct_walk_tiles": direct_tiles,
+        "rotate3_tiles_per_412_batch_of_8": 8 * 13 * 13,
+        "stage_capacity_words": shear.stage_capacity(3),
         "launches": {"shear": shear.shear_launches - before[0],
                      "rotate3": shear.rotate3_launches - before[1]},
     })

@@ -25,7 +25,9 @@
 // and writes 31.9 MB of float32, ~12 us at 3.35 TB/s (float32 input: 31.9 MB
 // read, ~19 us); rotate3 and shear on the padded (32, 3, 412, 412) uint16
 // canvas read and write 32.6 MB each, ~19.5 us. The arithmetic is a few us at
-// the float32 rate (chip_smoke.py:rotation_bound_ms, u16_bound_ms).
+// the float32 rate (chip_smoke.py:rotation_bound_ms, u16_bound_ms), but the
+// tiled kernels spend several instructions per blend on unpacking, indexing
+// and shared loads, and it is that work, not bytes, that holds them.
 //
 // The walk. ShX's output needs 2 taps of its input, so the rotation's output
 // pixel needs 2 taps of S2, 4 of S1 and 8 of P. walk3 computes the lines'
@@ -80,8 +82,40 @@
 //   tables, staging, blends and stores) a chain of dependent shared loads
 //   between barriers, at 40 registers and 11 KB of static tables a block.
 
-// rotate3_u16 and shear_u16 keep the per-pixel design (one thread per output
-// pixel of a uint16 CHW canvas, whole canvas stored).
+// rotate3_u16: the tiled design on the (C, H, W) uint16 canvas as it is.
+//   What held the previous design back (one thread per output pixel, 32x8
+//   blocks, 8 two-byte __ldg taps per channel from the CHW planes): 0.1134
+//   ms at (32, 3, 412^2), 5.8x its byte bound.
+//   The design. rotate3_u16_kernel runs rotate3_fused_kernel's steps on P =
+//   the canvas: a 32x32 tile of the whole H x W output a block, its
+//   footprint from tile_footprint (each axis about its own centre, H != W
+//   allowed, no margin: the whole canvas is data and taps outside it are 0),
+//   one packed word per tap of each S1 row's interval (Packed<float>'s
+//   layout, channel c at bits 16c of 64, packed from the planes in global
+//   memory), the same tile_pixels blends, and each thread's 4 columns of a
+//   channel stored as one 8-byte store (scalar stores where W is not a
+//   multiple of 4). Tiles whose words exceed the capacity, and every tile
+//   when C > 4, take the direct walk (walk3 + replay3 on the planes), counted
+//   in direct_tiles. At the path's slopes it stages at most 1666 words (13
+//   KB) beside 8 KB of tables, six blocks an SM at 40 registers.
+//   Copying each plane's rows of the footprint's box into shared memory
+//   first (cp.async, as the uint8 crops do) measured slower: the box holds
+//   three times the words' pixels, so it tripled the bytes read from L2, and
+//   its 60 KB of shared memory a block left room for three blocks an SM.
+//   Measured (chip_smoke.py phase 2, beside the per-pixel design's own
+//   chip_smoke.py in one call, NVIDIA H100 80GB HBM3, 700.00 W): 0.0686 ms
+//   at (32, 3, 412^2) against 0.1133 and a 0.0195 ms byte bound (3.5x).
+//   What holds it, as the fused mode: per-tile instruction work, not bytes.
+//   The canvas is all output (5,408 tiles against the fused mode's 2,592 at
+//   the same store), and each tile runs the footprint, tables and searches,
+//   the packing (3 two-byte loads a word) and 14 blends per pixel in
+//   tile_pixels. A scratch timing with single steps removed found each of
+//   the three a large share; issuing a thread's word loads in groups, or
+//   more registers a thread, was no faster. ptxas: 40 registers, 8,224
+//   bytes of static tables beside 13,328 bytes of words, 88 bytes of stack
+//   at 3 channels.
+// shear_u16 keeps the per-pixel design (one thread per output pixel, whole
+// canvas stored).
 //
 // Exactness, shared by all kernels through line_shear and blend: s, floor and
 // the weight are float32 as in the JAX package, and the product t * (l - c)
@@ -95,7 +129,7 @@
 
 namespace {
 
-constexpr int kBlockX = 32;  // the per-pixel kernels' blocks
+constexpr int kBlockX = 32;  // the one-shear kernel's blocks
 constexpr int kBlockY = 8;
 constexpr int kTile = 32;    // rotate3_fused: output tile side
 constexpr int kCols = 4;     // output columns per thread
@@ -221,14 +255,13 @@ struct ChwCanvas {
   }
 };
 
-// (B, C, H, W) uint16: the whole canvas, the per-pixel kernels' store.
+// (B, C, H, W) uint16: the whole canvas, the one-shear kernel's store.
 struct U16Store {
   uint16_t* out;
   int h, w, channels;
 
   __device__ int height() const { return h; }
   __device__ int width() const { return w; }
-  __device__ int offset() const { return 0; }
 
   __device__ U16Store at(int b) const {
     U16Store s = *this;
@@ -293,38 +326,47 @@ __device__ __forceinline__ int replay3(const Canvas& p, const Walk3& k, int c) {
 
 // ---- rotate3_fused: the tiled kernel
 
+// P's shape and where the image lies in it: rows [top, bottom] and columns
+// [left, right]; outside, every tap is 0. rotate3_fused: the n x n turned,
+// padded canvas with the image at [pad, pad + S); rotate3_u16: the H x W
+// canvas, all of it data.
+struct Frame {
+  int rows, cols;
+  int top, bottom, left, right;
+};
+
 // What the taps of one output tile (rows [r0, r1], columns [c0, c1] of P)
 // can reach, in P's coordinates: the tile's S2 columns [c2lo, c2hi] cut to
 // the canvas, its S1 rows [s1lo, s1lo + rows1) (not cut: a row outside the
 // image is all zero taps), and the box of P (rows [i0, i0 + h), columns
-// [j0, j0 + w)) of their taps cut to the image, which sits at rows and
-// columns [pad, pad + S) of P whatever the quarter-turn; h = 0 when no tap
-// lands in the image.
+// [j0, j0 + w)) of their taps cut to the image; h = 0 when no tap lands in
+// the image. Rows shear about the middle row, columns about the middle
+// column, as in walk3.
 struct Footprint {
   int c2lo, c2hi;
   int s1lo, rows1;
   int i0, j0, h, w;
 };
 
-__device__ Footprint tile_footprint(int n, int size, int pad, int r0, int r1, int c0,
-                                    int c1, float a, float b, int kmax_a, int kmax_b) {
+__device__ Footprint tile_footprint(const Frame& p, int r0, int r1, int c0, int c1, float a,
+                                    float b, int kmax_a, int kmax_b) {
   Footprint f{0, -1, 0, 0, 0, 0, 0, 0};
-  const float c = 0.5f * (float)(n - 1);
+  const float c_h = 0.5f * (float)(p.rows - 1), c_w = 0.5f * (float)(p.cols - 1);
   // S2 columns of the tile's rows (ShX(a) of rows r0 .. r1)
-  const int e0 = line_shear(a, r0, c, kmax_a).d, e1 = line_shear(a, r1, c, kmax_a).d;
+  const int e0 = line_shear(a, r0, c_h, kmax_a).d, e1 = line_shear(a, r1, c_h, kmax_a).d;
   f.c2lo = max(c0 + min(e0, e1), 0);
-  f.c2hi = min(c1 + max(e0, e1) + 1, n - 1);
+  f.c2hi = min(c1 + max(e0, e1) + 1, p.cols - 1);
   if (f.c2lo > f.c2hi) return f;
   // S1 rows of those columns (ShY(b) of columns c2lo .. c2hi)
-  const int g0 = line_shear(b, f.c2lo, c, kmax_b).d, g1 = line_shear(b, f.c2hi, c, kmax_b).d;
+  const int g0 = line_shear(b, f.c2lo, c_w, kmax_b).d, g1 = line_shear(b, f.c2hi, c_w, kmax_b).d;
   f.s1lo = r0 + min(g0, g1);
   f.rows1 = r1 + max(g0, g1) + 1 - f.s1lo + 1;
-  const int rlo = max(f.s1lo, pad), rhi = min(f.s1lo + f.rows1 - 1, pad + size - 1);
+  const int rlo = max(f.s1lo, p.top), rhi = min(f.s1lo + f.rows1 - 1, p.bottom);
   if (rlo > rhi) return f;
   // P columns of those rows (ShX(a) of rows rlo .. rhi), cut to the image
-  const int h0 = line_shear(a, rlo, c, kmax_a).d, h1 = line_shear(a, rhi, c, kmax_a).d;
-  const int jlo = max(f.c2lo + min(h0, h1), pad);
-  const int jhi = min(f.c2hi + max(h0, h1) + 1, pad + size - 1);
+  const int h0 = line_shear(a, rlo, c_h, kmax_a).d, h1 = line_shear(a, rhi, c_h, kmax_a).d;
+  const int jlo = max(f.c2lo + min(h0, h1), p.left);
+  const int jhi = min(f.c2hi + max(h0, h1) + 1, p.right);
   if (jlo > jhi) return f;
   f.i0 = rlo;
   f.j0 = jlo;
@@ -375,6 +417,18 @@ __device__ __forceinline__ void copy_async16(void* dst, uintptr_t src) {
 }
 
 constexpr int kMaxLines = kTileThreads;  // S1 rows and S2 columns a staged tile spans
+// the tiled kernels' static tables (line_b, row_tap, row_words, row_source,
+// warp_words): beside them, dynamic shared memory above 48 KB - this needs
+// the kernel's opt-in
+constexpr size_t kTableBytes =
+    kMaxLines * (sizeof(int) + sizeof(int2) + 2 * sizeof(int4)) + kTileThreads / 32 * sizeof(int);
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory beside its tables.
+template <class Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t smem) {
+  if (smem + kTableBytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 // The first of lines [0, count) whose packed shift (d + kmax) satisfies
 // pred, pred being false then true along the lines.
@@ -389,6 +443,59 @@ __device__ __forceinline__ int first_line(const int* lines, int count, Pred pred
       lo = mid + 1;
   }
   return lo;
+}
+
+// Step 2 of the tiled kernels, a thread an S1 row r of the tile's rows1
+// (`active`): the S2 columns that read it, an interval [first, last] because
+// the shift d2 is monotone in the column (binary searches in line_b), and its
+// words, one per P tap: the interval and one more column, or none for a row
+// outside the image (`inside` false). Every thread takes part: the words'
+// running sum in the warp is `end`, and each warp's total goes to warp_words.
+struct RowWords {
+  int first, count, end;
+};
+
+__device__ __forceinline__ RowWords row_words_of(const int* line_b, int cols2, int r, int r0,
+                                                 int r1, int kmax_b, float sb, bool active,
+                                                 bool inside, int* warp_words) {
+  int first = 0, count = 0;
+  if (active) {
+    // S2(row, c2) reads S1 rows row + d2 and row + d2 + 1, row in [r0, r1]
+    const int lo = r - r1 - 1 + kmax_b, hi = r - r0 + kmax_b;  // on d2 + kmax_b
+    int last;
+    if (sb >= 0.0f) {  // d2 non-decreasing along the columns
+      first = first_line(line_b, cols2, [&](int d) { return d >= lo; });
+      last = first_line(line_b, cols2, [&](int d) { return d > hi; }) - 1;
+    } else {
+      first = first_line(line_b, cols2, [&](int d) { return d <= hi; });
+      last = first_line(line_b, cols2, [&](int d) { return d < lo; }) - 1;
+    }
+    if (inside && first <= last) count = last - first + 2;
+  }
+  const int lane = threadIdx.x & 31;
+  int end = count;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xFFFFFFFFu, end, o);
+    if (lane >= o) end += v;
+  }
+  if (lane == 31) warp_words[threadIdx.x >> 5] = end;
+  return {first, count, end};
+}
+
+// Step 4: the row of rows [0, rows) that holds staged word `word`, the last
+// whose first word is at or before it (a row with no words shares its first
+// word with the next row).
+__device__ __forceinline__ int row_of_word(const int4* row_words, int rows, int word) {
+  int t = 0;
+  for (int hi = rows - 1; t < hi;) {
+    const int mid = (t + hi + 1) >> 1;
+    if (row_words[mid].x <= word)
+      t = mid;
+    else
+      hi = mid - 1;
+  }
+  return t;
 }
 
 // The first blend, ShX(a) of P: S1 = blend(lo, hi, w) per channel of two
@@ -425,19 +532,49 @@ __device__ __forceinline__ float fixed_to_float(int v) {
   return __fmaf_rn(__int_as_float(0x4B000000 | v), 1.0f / 256.0f, -32768.0f);
 }
 
+// Four consecutive 8.8 results of one channel at dst: the crop's float32
+// (v / 256, one 16-byte store) or the canvas's uint16 (one 8-byte store);
+// `whole`: all four lie in the row and dst is aligned, else the first
+// `count` are stored one by one.
+__device__ __forceinline__ void store4(float* dst, const int (&v)[kCols], bool whole, int count) {
+  float f[kCols];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) f[i] = fixed_to_float(v[i]);
+  if (whole) {
+    *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i)
+      if (i < count) dst[i] = f[i];
+  }
+}
+
+__device__ __forceinline__ void store4(uint16_t* dst, const int (&v)[kCols], bool whole,
+                                       int count) {
+  if (whole) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2((unsigned)v[0] | (unsigned)v[1] << 16, (unsigned)v[2] | (unsigned)v[3] << 16);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i)
+      if (i < count) dst[i] = (uint16_t)v[i];
+  }
+}
+
 // The output tile's pixels from the staged words: each thread 4 consecutive
 // pixels of one row, from the 5 S2 columns they share (output(row, col)
 // blends S2(row, col + d3) and S2(row, col + d3 + 1)); S2(row, c2) blends S1
 // rows row + d2 and row + d2 + 1 of column c2, each a blend of two staged
 // words. kChecked: some column of the block lies outside the canvas (S2 = 0
-// there, as in walk3) or outside the image's last tile; otherwise every
-// thread's 5 columns are in [c2lo, c2hi] and the loads need no test.
-template <typename T, int kC, bool kChecked>
-__device__ __forceinline__ void tile_pixels(const typename Packed<T>::Word* words,
-                                            const int* line_b, const int2* row_tap, int cols2,
-                                            int c2lo, int row_origin, int row, int c2base,
-                                            int w3, int channels, int size, int xo0,
-                                            float* row_out, size_t plane) {
+// there, as in walk3) or outside the output's last tile; otherwise every
+// thread's 5 columns are in [c2lo, c2hi] and the loads need no test. The
+// output row has `width` pixels, channel c at row_out + c * plane.
+template <typename Word, int kC, bool kChecked, typename Out>
+__device__ __forceinline__ void tile_pixels(const Word* words, const int* line_b,
+                                            const int2* row_tap, int cols2, int c2lo,
+                                            int row_origin, int row, int c2base, int w3,
+                                            int channels, int width, int xo0, Out* row_out,
+                                            size_t plane) {
   const int nc = kC ? kC : channels;
   int s2[kCols + 1][kMaxStagedChannels];
 #pragma unroll
@@ -452,28 +589,21 @@ __device__ __forceinline__ void tile_pixels(const typename Packed<T>::Word* word
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int2 tap = row_tap[inside ? r + u : 0];
-      const typename Packed<T>::Word* at = words + (inside ? tap.x + c2 : 0);
+      const Word* at = words + (inside ? tap.x + c2 : 0);
       first_blend(at[0], at[1], tap.y, nc, s1[u]);
     }
 #pragma unroll
     for (int c = 0; c < kMaxStagedChannels; ++c)
       s2[t][c] = c < nc && inside ? blend(s1[0][c], s1[1][c], w2) : 0;
   }
-  const bool whole = (size % kCols) == 0 && xo0 + kCols <= size;
+  const bool whole = (width % kCols) == 0 && xo0 + kCols <= width;
 #pragma unroll
   for (int c = 0; c < kMaxStagedChannels; ++c) {
     if (c >= nc) break;
-    float v[kCols];
+    int v[kCols];
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) v[i] = fixed_to_float(blend(s2[i][c], s2[i + 1][c], w3));
-    float* dst = row_out + c * plane + xo0;
-    if (whole) {
-      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kCols; ++i)
-        if (xo0 + i < size) dst[i] = v[i];
-    }
+    for (int i = 0; i < kCols; ++i) v[i] = blend(s2[i][c], s2[i + 1][c], w3);
+    store4(row_out + c * plane + xo0, v, whole, width - xo0);
   }
 }
 
@@ -509,7 +639,8 @@ __global__ void __launch_bounds__(kTileThreads, 6) rotate3_fused_kernel(
   const int q = quarter[b] & 3;
   const T* img = image + (size_t)b * size * size * channels;
   // block-uniform: every thread computes the same footprint
-  const Footprint f = tile_footprint(n, size, pad, r0, r1, c0, c1, a, sb, kmax_a, kmax_b);
+  const Footprint f = tile_footprint(Frame{n, n, pad, pad + size - 1, pad, pad + size - 1}, r0, r1,
+                                     c0, c1, a, sb, kmax_a, kmax_b);
   const int cols2 = max(f.c2hi - f.c2lo + 1, 0);
   // the staged words: a run of zeros for the S1 rows outside the image, then
   // each S1 row's interval of taps; each S2 column reads tile_rows + 1 S1
@@ -569,33 +700,12 @@ __global__ void __launch_bounds__(kTileThreads, 6) rotate3_fused_kernel(
     line_b[threadIdx.x] = pack_line(line_shear(sb, f.c2lo + threadIdx.x, center, kmax_b), kmax_b);
   __syncthreads();
 
-  // 2. a thread an S1 row: the S2 columns that read it, an interval because
-  // the shift d2 is monotone in the column (binary searches in line_b), and
-  // its words, one per P tap: the interval and one more column, or none for
-  // a row outside the image; their running sum in the warp
+  // 2. a thread an S1 row: its words (row_words_of)
   const int t = threadIdx.x;
   const int r = f.s1lo + t;
-  int first = 0, count = 0;
-  if (t < f.rows1) {
-    // S2(row, c2) reads S1 rows row + d2 and row + d2 + 1, row in [r0, r1]
-    const int lo = r - r1 - 1 + kmax_b, hi = r - r0 + kmax_b;  // on d2 + kmax_b
-    int last;
-    if (sb >= 0.0f) {  // d2 non-decreasing along the columns
-      first = first_line(line_b, cols2, [&](int d) { return d >= lo; });
-      last = first_line(line_b, cols2, [&](int d) { return d > hi; }) - 1;
-    } else {
-      first = first_line(line_b, cols2, [&](int d) { return d <= hi; });
-      last = first_line(line_b, cols2, [&](int d) { return d < lo; }) - 1;
-    }
-    if (r >= pad && r < pad + size && first <= last) count = last - first + 2;
-  }
-  int end = count;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xFFFFFFFFu, end, o);
-    if ((t & 31) >= o) end += v;
-  }
-  if ((t & 31) == 31) warp_words[t >> 5] = end;
+  const RowWords rw = row_words_of(line_b, cols2, r, r0, r1, kmax_b, sb, t < f.rows1,
+                                   r >= pad && r < pad + size, warp_words);
+  const int first = rw.first, count = rw.count, end = rw.end;
   __syncthreads();
 
   // 3. a thread an S1 row: where its words start, which of them lie in the
@@ -651,16 +761,7 @@ __global__ void __launch_bounds__(kTileThreads, 6) rotate3_fused_kernel(
     int at_word = zero_run + (int)threadIdx.x * per;
     const int end_word = min(at_word + per, zero_run + total);
     if (at_word < end_word) {
-      // the last row whose first word is at or before at_word holds it (a
-      // row with no words shares its first word with the next row)
-      int t = 0;
-      for (int hi = f.rows1 - 1; t < hi;) {
-        const int mid = (t + hi + 1) >> 1;
-        if (row_words[mid].x <= at_word)
-          t = mid;
-        else
-          hi = mid - 1;
-      }
+      int t = row_of_word(row_words, f.rows1, at_word);
       int4 w = row_words[t], src = row_source[t];
       for (; at_word < end_word; ++at_word) {
         int o = at_word - w.x;
@@ -708,30 +809,143 @@ __global__ void __launch_bounds__(kTileThreads, 6) rotate3_fused_kernel(
   const bool checked = c1 - c0 + 1 < kTile || f.c2lo != c0 + min(e0, e1) ||
                        f.c2hi != c1 + max(e0, e1) + 1;
   if (checked)
-    tile_pixels<T, kC, true>(words, line_b, row_tap, cols2, f.c2lo, f.s1lo + kmax_b, row, c2base, l3.w,
-                             channels, size, xo0, row_out, plane);
+    tile_pixels<Word, kC, true>(words, line_b, row_tap, cols2, f.c2lo, f.s1lo + kmax_b, row, c2base,
+                                l3.w, channels, size, xo0, row_out, plane);
   else
-    tile_pixels<T, kC, false>(words, line_b, row_tap, cols2, f.c2lo, f.s1lo + kmax_b, row, c2base, l3.w,
-                              channels, size, xo0, row_out, plane);
+    tile_pixels<Word, kC, false>(words, line_b, row_tap, cols2, f.c2lo, f.s1lo + kmax_b, row,
+                                 c2base, l3.w, channels, size, xo0, row_out, plane);
 }
 
-// ---- the per-pixel kernels of the uint16 modes
+// ---- rotate3_u16: the tiled kernel on a (C, H, W) uint16 canvas
+//
+// The walk of rotate3_fused_kernel on P = the canvas as it is (no to_fixed,
+// pad, quarter-turn or crop; H != W allowed, each axis about its own
+// centre): a block computes a 32 x 32 tile of the whole H x W output. Its
+// words are Packed<float>'s (channel c's 16 bits at bits 16c of 64), packed
+// from the planes in global memory. Each thread stores its 4 columns of
+// each channel as one 8-byte store.
 
-template <class Canvas, class Store>
-__global__ void rotate3_kernel(Canvas canvas, Store output,
-                               const float* __restrict__ slope_a,
-                               const float* __restrict__ slope_b, int channels,
-                               int kmax_a, int kmax_b) {
-  const int xo = blockIdx.x * kBlockX + threadIdx.x;
-  const int yo = blockIdx.y * kBlockY + threadIdx.y;
+template <int kC>
+__global__ void __launch_bounds__(kTileThreads, 6) rotate3_u16_kernel(
+    const uint16_t* __restrict__ image, const float* __restrict__ slope_a,
+    const float* __restrict__ slope_b, uint16_t* __restrict__ out, int channels, int height,
+    int width, int kmax_a, int kmax_b, int capacity, int* __restrict__ direct_tiles) {
+  using Word = unsigned long long;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Word* words = reinterpret_cast<Word*>(smem);
+  __shared__ int line_b[kMaxLines];      // ShY(b) of S2 column c2lo + t, packed
+  __shared__ int2 row_tap[kMaxLines];    // {A, w1} of S1 row s1lo + t, as in rotate3_fused
+  __shared__ int4 row_words[kMaxLines];  // its words: first, count, in-canvas [lo, hi)
+  __shared__ int row_source[kMaxLines];  // the canvas element (plane 0) of its word 0
+  __shared__ int warp_words[kTileThreads / 32];
+  if (kC) channels = kC;
+
   const int b = blockIdx.z;
-  if (xo >= output.width() || yo >= output.height()) return;
-  const Canvas p = canvas.at(b);
-  const Store o = output.at(b);
-  const Walk3 k = walk3(p, yo + o.offset(), xo + o.offset(), slope_a[b],
-                        slope_b[b], kmax_a, kmax_b);
-  for (int c = 0; c < channels; ++c) o.store(c, yo, xo, replay3(p, k, c));
+  const float c_h = 0.5f * (float)(height - 1), c_w = 0.5f * (float)(width - 1);
+  const int r0 = blockIdx.y * kTile, r1 = min(r0 + kTile, height) - 1;
+  const int c0 = blockIdx.x * kTile, c1 = min(c0 + kTile, width) - 1;
+  const float a = slope_a[b], sb = slope_b[b];
+  const size_t plane = (size_t)height * width;
+  const uint16_t* img = image + (size_t)b * channels * plane;
+  const Footprint f = tile_footprint(Frame{height, width, 0, height - 1, 0, width - 1}, r0, r1, c0,
+                                     c1, a, sb, kmax_a, kmax_b);
+  const int cols2 = max(f.c2hi - f.c2lo + 1, 0);
+  const int zero_run = cols2 + 1;
+  const int bound = zero_run + cols2 * (r1 - r0 + 2) + f.rows1;
+  const bool staged = capacity > 0 && bound <= capacity && cols2 <= kMaxLines &&
+                      f.rows1 <= kMaxLines;
+
+  const int yo = r0 + threadIdx.x / (kTile / kCols);
+  const int xo0 = c0 + (threadIdx.x % (kTile / kCols)) * kCols;
+  uint16_t* row_out = out + (size_t)b * channels * plane + (size_t)yo * width;  // channel 0
+
+  if (!staged) {  // the direct walk: taps straight from the canvas
+    if (threadIdx.x == 0 && direct_tiles != nullptr) atomicAdd(direct_tiles, 1);
+    if (yo >= height) return;
+    const ChwCanvas p{img, height, width, channels};
+    for (int i = 0; i < kCols; ++i) {
+      const int xo = xo0 + i;
+      if (xo >= width) break;
+      const Walk3 k = walk3(p, yo, xo, a, sb, kmax_a, kmax_b);
+      for (int c = 0; c < channels; ++c) row_out[c * plane + xo] = (uint16_t)replay3(p, k, c);
+    }
+    return;
+  }
+
+  // 1. the S2 columns' lines
+  if ((int)threadIdx.x < cols2)
+    line_b[threadIdx.x] = pack_line(line_shear(sb, f.c2lo + threadIdx.x, c_w, kmax_b), kmax_b);
+  __syncthreads();
+
+  // 2. a thread an S1 row: its words (row_words_of), none for a row outside
+  // the canvas
+  const int t = threadIdx.x;
+  const int r = f.s1lo + t;
+  const RowWords rw = row_words_of(line_b, cols2, r, r0, r1, kmax_b, sb, t < f.rows1,
+                                   r >= 0 && r < height, warp_words);
+  const int first = rw.first, count = rw.count, end = rw.end;
+  __syncthreads();
+
+  // 3. a thread an S1 row: where its words start, which lie in the canvas
+  // (word o is P's (r, j0 + o)), and the element of word 0
+  if (t < f.rows1) {
+    int base = zero_run + end - count;
+    for (int k = 0; k < (t >> 5); ++k) base += warp_words[k];
+    const Shear l1 = line_shear(a, r, c_h, kmax_a);
+    const int c2first = f.c2lo + first;
+    row_tap[t] = make_int2(count > 0 ? base - c2first : -f.c2lo, l1.w);
+    const int j0 = c2first + l1.d;
+    row_words[t] = make_int4(base, count, max(-j0, 0), min(width - j0, count));
+    row_source[t] = count > 0 ? r * width + j0 : 0;
+  }
+  __syncthreads();
+
+  // 4. the words, a run of consecutive ones a thread, 0 outside the canvas
+  {
+    int total = 0;
+    for (int k = 0; k < kTileThreads / 32; ++k) total += warp_words[k];
+    const int per = (total + kTileThreads - 1) / kTileThreads;
+    int at_word = zero_run + (int)threadIdx.x * per;
+    const int end_word = min(at_word + per, zero_run + total);
+    if (at_word < end_word) {
+      int t = row_of_word(row_words, f.rows1, at_word);
+      int4 w = row_words[t];
+      int src = row_source[t];
+      for (; at_word < end_word; ++at_word) {
+        int o = at_word - w.x;
+        while (o >= w.y) {  // into the next row with words
+          ++t;
+          w = row_words[t];
+          src = row_source[t];
+          o = at_word - w.x;
+        }
+        Word word = 0;
+        if (o >= w.z && o < w.w) {
+#pragma unroll
+          for (int c = 0; c < kMaxStagedChannels; ++c)
+            if (c < channels) word |= (Word)__ldg(img + c * plane + src + o) << (16 * c);
+        }
+        words[at_word] = word;
+      }
+    }
+    for (int k = threadIdx.x; k < zero_run; k += blockDim.x) words[k] = 0;
+  }
+  __syncthreads();
+  if (yo >= height) return;
+
+  const Shear l3 = line_shear(a, yo, c_h, kmax_a);
+  const int e0 = line_shear(a, r0, c_h, kmax_a).d, e1 = line_shear(a, r1, c_h, kmax_a).d;
+  const bool checked = c1 - c0 + 1 < kTile || f.c2lo != c0 + min(e0, e1) ||
+                       f.c2hi != c1 + max(e0, e1) + 1;
+  if (checked)
+    tile_pixels<Word, kC, true>(words, line_b, row_tap, cols2, f.c2lo, f.s1lo + kmax_b, yo,
+                                xo0 + l3.d, l3.w, channels, width, xo0, row_out, plane);
+  else
+    tile_pixels<Word, kC, false>(words, line_b, row_tap, cols2, f.c2lo, f.s1lo + kmax_b, yo,
+                                 xo0 + l3.d, l3.w, channels, width, xo0, row_out, plane);
 }
+
+// ---- the per-pixel kernel of the one-shear mode
 
 // One shear: axis 2 shifts row yo along W, axis 1 shifts column xo along H.
 template <class Canvas, class Store>
@@ -776,11 +990,8 @@ int launch_fused(const void* image, const void* slope_a, const void* slope_b,
       (((size_t)capacity * sizeof(typename Packed<T>::Word) + 15) & ~(size_t)15) + raw_bytes;
   // the path's three channels as a compile-time count, any other at run time
   const auto kernel = channels == 3 ? rotate3_fused_kernel<T, 3> : rotate3_fused_kernel<T, 0>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
   const int tiles = (size + kTile - 1) / kTile;
   kernel<<<dim3(tiles, tiles, batch), kTileThreads, smem, (cudaStream_t)stream>>>(
       (const T*)image, (const float*)slope_a, (const float*)slope_b,
@@ -825,17 +1036,22 @@ extern "C" int rotate3_fused_f32(const void* image, const void* slope_a,
 }
 
 // rotate3_u16 — image, out: (B, C, H, W) uint16; slope_a, slope_b: (B,)
-// float32.
+// float32. capacity: the packed words a block stages its footprint in
+// (ops/shear.py:stage_capacity; 0 walks every tile directly); direct_tiles
+// as above.
 extern "C" int rotate3_u16(const void* image, const void* slope_a,
                            const void* slope_b, void* out, int batch,
                            int channels, int height, int width, int kmax_a,
-                           int kmax_b, void* stream) {
-  const ChwCanvas canvas{(const uint16_t*)image, height, width, channels};
-  const U16Store store{(uint16_t*)out, height, width, channels};
-  rotate3_kernel<<<grid_of(height, width, batch), dim3(kBlockX, kBlockY), 0,
-                   (cudaStream_t)stream>>>(canvas, store, (const float*)slope_a,
-                                           (const float*)slope_b, channels,
-                                           kmax_a, kmax_b);
+                           int kmax_b, int capacity, void* direct_tiles, void* stream) {
+  if (channels > kMaxStagedChannels) capacity = 0;
+  const size_t smem = (size_t)capacity * sizeof(unsigned long long);
+  const auto kernel = channels == 3 ? rotate3_u16_kernel<3> : rotate3_u16_kernel<0>;
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((width + kTile - 1) / kTile, (height + kTile - 1) / kTile, batch);
+  kernel<<<grid, kTileThreads, smem, (cudaStream_t)stream>>>(
+      (const uint16_t*)image, (const float*)slope_a, (const float*)slope_b, (uint16_t*)out,
+      channels, height, width, kmax_a, kmax_b, capacity, (int*)direct_tiles);
   return (int)cudaGetLastError();
 }
 

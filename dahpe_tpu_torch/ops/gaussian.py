@@ -96,6 +96,10 @@ def render_gaussian_cuda(
     b, k, _ = mu.shape
     if b * height * width * k >= 2**31:
         raise ValueError("render_gaussian_cuda: the output must have fewer than 2^31 elements")
+    if not -(2**31) <= int(reach) < 2**31:
+        raise ValueError(f"render_gaussian_cuda: reach {reach} does not fit int32")
+    if mu.data_ptr() % 8:  # the kernel reads each peak as one 8-byte load
+        mu = mu.clone()
     out = torch.empty((b, height, width, k), dtype=torch.float32, device=mu.device)
     if out.numel() == 0:
         return out

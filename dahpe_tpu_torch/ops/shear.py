@@ -48,7 +48,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "rotate3_fused_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "rotate3_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "rotate3_u16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "rotate3_u16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "shear_u16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
@@ -134,11 +134,12 @@ def stage_words(cols2: int, tile_rows: int, rows1: int) -> int:
 
 
 def stage_capacity(channels: int) -> int:
-    """Packed words of shared memory a block of ``rotate3_fused`` stages its
-    taps in: :func:`stage_words` of a full tile at slopes within
-    ``SLOPE_CAPS`` (the ``w2`` S2 columns and ``h1`` S1 rows of
-    :func:`stage_box_shape`'s chain), or 0 when ``channels`` do not fit one
-    word and every tile takes the kernel's direct walk."""
+    """Packed words of shared memory a block of ``rotate3_fused`` or
+    ``rotate3_u16`` stages its taps in: :func:`stage_words` of a full tile at
+    slopes within ``SLOPE_CAPS`` (the ``w2`` S2 columns and ``h1`` S1 rows of
+    :func:`stage_box_shape`'s chain, which the slopes alone bound, whatever
+    the canvas), or 0 when ``channels`` do not fit one word and every tile
+    takes the kernel's direct walk."""
     if channels > MAX_STAGED_CHANNELS:
         return 0
     w2 = TILE + _spread(SLOPE_CAPS[0], TILE - 1) + 1
@@ -383,23 +384,34 @@ def shear_cuda(images: torch.Tensor, slope: torch.Tensor, *, kmax: int,
 
 
 def rotate3_cuda(images: torch.Tensor, slope_a: torch.Tensor, slope_b: torch.Tensor, *,
-                 kmax_a: int, kmax_b: int) -> torch.Tensor:
+                 kmax_a: int, kmax_b: int,
+                 direct_tiles: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the three-shear kernel on the current stream; contiguous
-    uint16 ``images`` and float32 slopes on one CUDA device."""
+    uint16 ``images`` and float32 slopes on one CUDA device.
+
+    Each block stages its tile's taps in :func:`stage_capacity` words of
+    shared memory; a tile that needs more takes the kernel's direct walk,
+    with the same result. ``direct_tiles``, an int32 ``(1,)``
+    CUDA tensor, gets 1 added for each tile that took the direct walk."""
     global rotate3_launches
     _check_u16("rotate3_cuda", images)
     _check_cuda("rotate3_cuda", (images, slope_a, slope_b))
     b, c, h, w = images.shape
     if not all(t.dtype == torch.float32 and tuple(t.shape) == (b,) for t in (slope_a, slope_b)):
         raise ValueError(f"rotate3_cuda: need float32 slopes per image, ({b},)")
+    if direct_tiles is not None and (direct_tiles.dtype != torch.int32
+                                     or direct_tiles.device != images.device):
+        raise ValueError("rotate3_cuda: direct_tiles must be int32 beside the images")
     out = torch.empty_like(images)
     if out.numel() == 0:
         return out
+    capacity = stage_capacity(c)
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
         _check_launch(_lib().rotate3_u16(
             images.data_ptr(), slope_a.data_ptr(), slope_b.data_ptr(), out.data_ptr(),
-            b, c, h, w, int(kmax_a), int(kmax_b), stream), "rotate3")
+            b, c, h, w, int(kmax_a), int(kmax_b), capacity,
+            None if direct_tiles is None else direct_tiles.data_ptr(), stream), "rotate3")
     rotate3_launches += 1
     return out
 
