@@ -13,17 +13,21 @@ line, fail the run by raising:
 2. every CUDA kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it, with its time, the plain time and the
    least time the card could take (its bound): the Gaussian targets (the
-   path's three shapes timed, and odd shapes, reaches, peaks and flags), the
-   Paeth rotation of the training producer (uint8, and its float32 mode;
-   every quarter-turn, the path's extreme slopes and slopes beyond them,
-   whose tiles take the kernel's direct walk, sizes 288, 256 and 100, one
-   image), the fused pseudo-labels (the three builds of Step B with GT and
-   GF alone, every GF kind with and without fusion and normalisation, and
-   the largest shapes), and the rotation kernel's two uint16 modes (one
-   shear on either axis, the three-shear rotation) on the padded canvas of
-   the 288² store, the rotation also at the extreme slopes and beyond them,
-   on non-square canvases and at 1 and 5 channels, with two identities
-   between the modes;
+   three shapes of each path's heatmap size, 64 and 96, timed, and odd
+   shapes, reaches, peaks and flags), the Paeth rotation of the training
+   producer (uint8, and its float32 mode; every quarter-turn, the path's
+   extreme slopes and slopes beyond them, whose tiles take the kernel's
+   direct walk, sizes 288, 256 and 100, one image), the fused pseudo-labels
+   (the three builds of Step B with GT and GF alone, GF alone also on the
+   general kernel, those of a run at ``--heatmap-size 96`` and the maps
+   128² and 256², every GF kind with and without fusion and normalisation,
+   joint groups up to K = 600, and the largest
+   shapes), and the rotation kernel's two uint16 modes (one shear on either
+   axis, the three-shear rotation) on the padded canvas of the 288² store,
+   both also at the extreme slopes and beyond them, on non-square canvases
+   and at 1 and 5 channels (the shear also at one image, a shift bound past
+   the canvas, canvases at odd addresses and a tall one whose ShY windows
+   pass their cap), with two identities between the modes;
 3. serving: ``MultiHeadPoseResNet(resnet101)`` at full width (256² frames,
    64² heatmaps, 21 joints) with seeded random weights answers uint8
    requests of 1, 8 and 32 frames through ``make_predict_fn``, checked
@@ -38,6 +42,8 @@ line, fail the run by raising:
    weights and draws with the kernels and again with their plain versions
    must give bit-identical batches and agreeing losses and weights; then one
    step of ``make_fused_pretrain_iteration`` (``PoseResNet(resnet101)``);
+   and one DA iteration at ``--image-size 384 --heatmap-size 96`` (the label
+   kernel at 96²), its launches and finite losses checked;
 6. the training CLI, ``dahpe_tpu_torch.cli.train.main``, at full width
    (ResNet-101, 256²/64², batch 32, ``--device-store --with-ema``) on the
    synthetic domains cut to 256 train and 64 val frames: a pretrain epoch
@@ -69,6 +75,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 IMAGE, HEATMAP, JOINTS, SIGMA = 256, 64, 21, 2.0
 GAUSSIAN_SHAPES = [(32, 64, 6), (32, 32, 4), (32, 16, 3)]  # (B, size, reach)
+GAUSSIAN_SHAPES_96 = [(32, 96, 6), (32, 48, 4), (32, 24, 3)]  # at --heatmap-size 96
 RAW, BATCH = 288, 32  # stored crop side; batch per domain (cli/args.py:34)
 # (size, reach, gf_kind, fused target, normalize): the labels of Step B
 LABEL_SHAPES = [(64, 6, "union_minus", True, True), (32, 4, "inverse", True, True),
@@ -80,7 +87,12 @@ NO_LAUNCHES = {"render_gaussian": 0, "pseudo_labels": 0, "rotate3_fused": 0,
 PATH_KERNELS = ("render_gaussian", "pseudo_labels", "rotate3_fused")
 
 
-def line(tag: str, payload) -> None:
+_START = time.perf_counter()
+
+
+def line(tag: str, payload: dict) -> None:
+    """One phase's line, with the seconds since the script started."""
+    payload = dict(payload, elapsed_s=round(time.perf_counter() - _START, 1))
     print(f"{tag}: {json.dumps(payload)}", flush=True)
 
 
@@ -248,12 +260,12 @@ def gaussian_cases(torch):
 
 
 def phase_gaussian(torch, gaussian):
-    """Kernel 1 at the path's three shapes, timed beside two yardsticks (zeros
-    stored at the kernel's own launch geometry, a PyTorch fill of the same
-    bytes), then :func:`gaussian_cases`; each ``torch.equal`` to the plain
-    version."""
+    """Kernel 1 at the path's three shapes and the three of a run at
+    ``--heatmap-size 96``, timed beside two yardsticks (zeros stored at the
+    kernel's own launch geometry, a PyTorch fill of the same bytes), then
+    :func:`gaussian_cases`; each ``torch.equal`` to the plain version."""
     launches_before, rows = gaussian.launches, []
-    for b, size, reach in GAUSSIAN_SHAPES:
+    for b, size, reach in GAUSSIAN_SHAPES + GAUSSIAN_SHAPES_96:
         mu, valid = gaussian_inputs(torch, b, size, seed=size)
         kw = dict(height=size, width=size, sigma=SIGMA, reach=reach)
         got = gaussian.render_gaussian_cuda(mu, valid, **kw)
@@ -285,7 +297,8 @@ def phase_gaussian(torch, gaussian):
             raise AssertionError(f"gaussian {name}: kernel differs from plain")
         cases.append(name)
     line("phase 2 gaussian kernel vs plain (torch.equal)",
-         {"shapes": rows, "cases_equal": cases, "launches": gaussian.launches - launches_before})
+         {"shapes": rows[:len(GAUSSIAN_SHAPES)], "heatmap_96": rows[len(GAUSSIAN_SHAPES):],
+          "cases_equal": cases, "launches": gaussian.launches - launches_before})
     return rows[0]
 
 
@@ -445,6 +458,26 @@ def u16_case(torch, shear, shape, a, b, kmax_a, kmax_b, seed):
     return int(direct.item())
 
 
+def shear_case(torch, shear, shape, slope, kmax, axis, seed, offset=0):
+    """One full-range uint16 canvas through ``shear_cuda`` against
+    ``shear_plain`` (``torch.equal``); ``offset`` puts the canvas that many
+    elements into its buffer (rows at other phases of the 8-byte words).
+    Returns the ShY tiles that took the direct walk."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = int(np.prod(shape))
+    flat = shear.i32_to_u16(torch.randint(0, 65536, (n + offset,), dtype=torch.int32,
+                                          device="cuda", generator=g))
+    canvas = flat[offset:].view(shape)
+    direct = torch.zeros(1, dtype=torch.int32, device="cuda")
+    got = shear.shear_cuda(canvas, slope, kmax=kmax, axis=axis, direct_tiles=direct)
+    ref = shear.shear_plain(canvas, slope, kmax=kmax, axis=axis)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+        raise AssertionError(f"shear axis {axis} {tuple(shape)} kmax {kmax} offset {offset}: "
+                             f"kernel differs from plain")
+    return int(direct.item())
+
+
 def phase_shears(torch, shear):
     """Kernels 5 and 4, the rotation kernel's uint16 modes, at the padded
     canvas of the 288² store (32, 3, 412, 412) with the path's shift bounds,
@@ -453,7 +486,10 @@ def phase_shears(torch, shear):
     tile of the rotation staged); then the rotation's cases: the path's
     extreme slopes, slopes beyond them (tiles on the direct walk), non-square
     canvases (one of them with rows not a multiple of 4 pixels), 1 and 5
-    channels (5 walk every tile directly); then ``rotate3 ==
+    channels (5 walk every tile directly); the shear's cases on both axes
+    (those of the rotation, one image, a shift bound past the canvas,
+    canvases 1 and 3 elements into their buffers, a tall canvas whose ShY
+    windows pass their cap and take the direct walk); then ``rotate3 ==
     shear(shear(shear()))`` and ``crop(rotate3(pad(to_fixed(x)))) / 256 ==
     rotate3_fused(x)`` on the card."""
     pad, kmax_a, kmax_b = shear.rotation_geometry(RAW)
@@ -483,6 +519,7 @@ def phase_shears(torch, shear):
             "shape": list(shape), "kmax": kmax, "max_abs_err": 0.0,
             "ms": cuda_ms(torch, kernel), "plain_ms": cuda_ms(torch, plain, iters=10, warmup=2),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        rows[f"shear_axis{axis}"]["over_bound"] = rows[f"shear_axis{axis}"]["ms"] / bound_ms
     kw = dict(kmax_a=kmax_a, kmax_b=kmax_b)
     direct = torch.zeros(1, dtype=torch.int32, device="cuda")
     got = shear.rotate3_cuda(canvas, a, b, direct_tiles=direct, **kw)
@@ -524,6 +561,34 @@ def phase_shears(torch, shear):
         raise AssertionError(f"rotate3 (uint16): no tile took the direct walk beyond the caps "
                              f"or at 5 channels {direct_tiles}")
 
+    # the one-shear cases, each axis: (shape, ShX slopes, ShY slopes, kmax_x,
+    # kmax_y, element offset of the canvas in its buffer)
+    tall = ((2, 1, 1100, 40), cycle(2, [300.0, -300.0]), cycle(2, [300.0, -300.0]), 700, 700, 0)
+    shear_cases = {
+        "path extremes 412²": ((8, 3, n, n), *extreme, kmax_a, kmax_b, 0),
+        "beyond the caps 412²": ((8, 3, n, n), *beyond, kmax_a, kmax_b, 0),
+        "non-square 300 x 412": ((8, 3, 300, n), *extreme, kmax_a, kmax_b, 0),
+        "non-square 257 x 301": ((8, 3, 257, 301), *extreme, kmax_a, kmax_b, 0),
+        "beyond the caps 257 x 301": ((8, 3, 257, 301), *beyond, kmax_a, kmax_b, 0),
+        "1 channel": ((8, 1, n, n), *extreme, kmax_a, kmax_b, 0),
+        "5 channels": ((8, 5, 160, 200), *extreme, kmax_a, kmax_b, 0),
+        "B = 1": ((1, 3, n, n), extreme[0][1:2], extreme[1][2:3], kmax_a, kmax_b, 0),
+        "kmax > canvas": ((4, 3, 100, 90), cycle(4, [5.0, -7.5]), cycle(4, [-6.0, 9.0]), 300,
+                          300, 0),
+        "canvas 1 element into its buffer": ((8, 3, 257, 301), *extreme, kmax_a, kmax_b, 1),
+        "canvas 3 elements into its buffer": ((8, 3, 300, n), *beyond, kmax_a, kmax_b, 3),
+        "tall canvas, ShY window past its cap": tall,
+    }
+    shear_direct = {}
+    for i, (name, (case_shape, sx, sy, kx, ky, offset)) in enumerate(shear_cases.items()):
+        shear_case(torch, shear, case_shape, sx.float(), kx, 2, 80 + i, offset)
+        shear_direct[name] = shear_case(torch, shear, case_shape, sy.float(), ky, 1, 90 + i,
+                                        offset)
+    if any(count for name, count in shear_direct.items() if name != "tall canvas, ShY window "
+           "past its cap") or not shear_direct["tall canvas, ShY window past its cap"]:
+        raise AssertionError(f"shear: ShY tiles on the direct walk {shear_direct}, expected "
+                             f"them on the tall canvas alone")
+
     # identities between the modes, on the card
     three = shear.shear_cuda(shear.shear_cuda(shear.shear_cuda(canvas, a, kmax=kmax_a, axis=2),
                                               b, kmax=kmax_b, axis=1), a, kmax=kmax_a, axis=2)
@@ -544,6 +609,8 @@ def phase_shears(torch, shear):
         "rows": rows, "identities": {"rotate3 == shear x3": True,
                                      "crop(rotate3(pad(to_fixed)))/256 == rotate3_fused": True},
         "rotate3_cases_equal": list(cases), "rotate3_direct_walk_tiles": direct_tiles,
+        "shear_cases_equal_both_axes": list(shear_cases), "shear_y_direct_tiles": shear_direct,
+        "shear_y_plan_412": shear.shear_y_plan(n, n, kmax_b),
         "rotate3_tiles_per_412_batch_of_8": 8 * 13 * 13,
         "stage_capacity_words": shear.stage_capacity(3),
         "launches": {"shear": shear.shear_launches - before[0],
@@ -599,29 +666,84 @@ def label_case(torch, pseudo_label, batch, size, joints, reach, gf_kind, fused, 
     return peaks, target, kw, gt, gf, err, atol
 
 
+def general_kernel(torch, pseudo_label, peaks, target, kw):
+    """A call that writes GF alone through the general kernel of
+    ``csrc/pseudo_label.cu`` at a map the 8-block kernel takes (the path's
+    builds), beside the kernel ``launch_geometry`` picks there: the measure
+    that keeps the two apart. Calls the library directly, so the wrapper's
+    launch count does not see it."""
+    size, joints = kw["out_size"], peaks.shape[1]
+    geo = dict(pseudo_label.launch_geometry(size, joints), wide=True)
+    assert geo["groups"] == 1 and geo["shared_bytes"] <= pseudo_label.SHARED_LIMIT, geo
+    gf = torch.empty((peaks.shape[0], size, size, joints), device="cuda")
+    fn, stream = pseudo_label._lib().pseudo_labels_f32, torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(peaks.data_ptr(), None if target is None else target.data_ptr(), None,
+                 gf.data_ptr(), peaks.shape[0], size, joints, pseudo_label._two_sigma_sq(SIGMA),
+                 kw["reach"], pseudo_label.GF_KINDS[kw["gf_kind"]], int(kw["normalize"]), 1,
+                 geo["groups"], geo["threads"], geo["tile"], int(geo["staged"]),
+                 geo["shared_bytes"], stream)
+        if err != 0:
+            raise RuntimeError(f"general label kernel launch failed: cudaError {err} ({geo})")
+        return gf
+    return launch
+
+
+def label_row(torch, pseudo_label, batch, size, reach, gf_kind, fused, normalize, seed,
+              plain_iters=100, general=False):
+    """One label build checked by :func:`label_case` and timed with GT and
+    GF alone, beside the plain version and the bounds; with ``general``,
+    GF alone also checked and timed on the general kernel."""
+    peaks, target, kw, gt, gf, err, atol = label_case(
+        torch, pseudo_label, batch, size, JOINTS, reach, gf_kind, fused, normalize, seed)
+    full = lambda: pseudo_label.pseudo_labels_cuda(peaks, target, **kw)  # noqa: E731
+    gf_only = lambda: pseudo_label.pseudo_labels_cuda(  # noqa: E731
+        peaks, target, with_gt=False, **kw)
+    plain = lambda: pseudo_label.pseudo_labels_plain(peaks, target, **kw)  # noqa: E731
+    bound_ms, bound_by = labels_bound_ms(batch, size, gf_kind, fused, normalize, gt)
+    gf_bound_ms, _ = labels_bound_ms(batch, size, gf_kind, fused, normalize, gt, with_gt=False)
+    row = {"shape": [batch, size, size, JOINTS], "gf_kind": gf_kind, "fused": fused,
+           "normalize": normalize, "geometry": pseudo_label.launch_geometry(size, JOINTS),
+           "max_abs_err": err, "atol": atol,
+           "ms": cuda_ms(torch, full), "gf_only_ms": cuda_ms(torch, gf_only),
+           "plain_ms": cuda_ms(torch, plain, iters=plain_iters, warmup=min(10, plain_iters)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "gf_only_bound_ms": gf_bound_ms, "library_ms": None, "call_ms": host_ms(torch, full)}
+    row.update(over_bound=row["ms"] / bound_ms, gf_only_over_bound=row["gf_only_ms"] / gf_bound_ms)
+    if general:
+        launch = general_kernel(torch, pseudo_label, peaks, target, kw)
+        general_err = float((launch() - gf).abs().max())
+        torch.cuda.synchronize()
+        if not general_err <= atol:
+            raise AssertionError(f"labels {size}²: the general kernel's GF differs by "
+                                 f"{general_err} > {atol}")
+        row["general_kernel"] = {"max_abs_err_to_kernel": general_err,
+                                 "gf_only_ms": cuda_ms(torch, launch)}
+    return row
+
+
 def phase_labels(torch, pseudo_label):
     """Kernel 2: the three label builds of Step B (B = 32, K = 21), each with
-    GT and GF alone, timed; every GF kind with and without a fused target
-    and normalisation at a small shape; the largest shapes, staged (K = 55 at
-    90²) and on the second pass (K = 64 at 90²)."""
+    GT and GF alone, timed, and GF alone also on the general kernel; those
+    of a run at ``--heatmap-size 96`` (96², 48², 24², and ``rd_plain``'s
+    unnormalised union_others at 96²) and the larger maps 128² and 256²,
+    timed; every GF kind with and without a fused
+    target and normalisation at a small shape; the largest shapes of the
+    8-block kernel, staged (K = 55 at 90²) and on the second pass (K = 64 at
+    90²); the general kernel's joint groups (K = 65, 128, 600), each GF
+    kind, and a map whose sum table takes tiles (400²)."""
     launches_before, rows = pseudo_label.launches, []
     for size, reach, gf_kind, fused, normalize in LABEL_SHAPES:
-        peaks, target, kw, gt, gf, err, atol = label_case(
-            torch, pseudo_label, BATCH, size, JOINTS, reach, gf_kind, fused, normalize, size)
-        full = lambda: pseudo_label.pseudo_labels_cuda(peaks, target, **kw)  # noqa: E731
-        gf_only = lambda: pseudo_label.pseudo_labels_cuda(  # noqa: E731
-            peaks, target, with_gt=False, **kw)
-        plain = lambda: pseudo_label.pseudo_labels_plain(peaks, target, **kw)  # noqa: E731
-        bound_ms, bound_by = labels_bound_ms(BATCH, size, gf_kind, fused, normalize, gt)
-        gf_bound_ms, _ = labels_bound_ms(BATCH, size, gf_kind, fused, normalize, gt,
-                                         with_gt=False)
-        row = {"shape": [BATCH, size, size, JOINTS], "gf_kind": gf_kind, "fused": fused,
-               "normalize": normalize, "max_abs_err": err, "atol": atol,
-               "ms": cuda_ms(torch, full), "gf_only_ms": cuda_ms(torch, gf_only),
-               "plain_ms": cuda_ms(torch, plain), "bound_ms": bound_ms, "bound_by": bound_by,
-               "gf_only_bound_ms": gf_bound_ms, "library_ms": None, "call_ms": host_ms(torch, full)}
-        row.update(over_bound=row["ms"] / bound_ms, gf_only_over_bound=row["gf_only_ms"] / gf_bound_ms)
-        rows.append(row)
+        rows.append(label_row(torch, pseudo_label, BATCH, size, reach, gf_kind, fused, normalize,
+                              size, general=True))
+    at_96 = [label_row(torch, pseudo_label, BATCH, size, reach, gf_kind, fused, normalize, seed,
+                       plain_iters=20)
+             for seed, (size, reach, gf_kind, fused, normalize) in enumerate(
+                 [(96, 6, "union_minus", True, True), (48, 4, "inverse", True, True),
+                  (24, 3, "inverse", False, False), (96, 6, "union_others", False, False),
+                  (128, 6, "union_minus", True, True), (256, 6, "union_minus", True, True)],
+                 start=100)]
 
     kinds = []
     for i, gf_kind in enumerate(pseudo_label.GF_KINDS):
@@ -631,19 +753,26 @@ def phase_labels(torch, pseudo_label):
                                            normalize, 70 + 4 * i + 2 * fused + normalize, low=-3)
                 kinds.append({"gf_kind": gf_kind, "fused": fused, "normalize": normalize,
                               "max_abs_err": err, "atol": atol})
-    largest = []
-    for joints in (55, 64):
-        geometry = pseudo_label.launch_geometry(90, joints)
-        *_, err, atol = label_case(torch, pseudo_label, 4, 90, joints, 6, "union_minus", True,
-                                   True, 90 + joints)
-        largest.append({"shape": [4, 90, 90, joints], "staged": geometry["staged"],
-                        "shared_bytes": geometry["shared_bytes"], "max_abs_err": err, "atol": atol})
+    largest = []  # the 8-block kernel's largest shapes, then the general kernel's
+    for batch, size, joints, gf_kind, fused, normalize in (
+            (4, 90, 55, "union_minus", True, True), (4, 90, 64, "union_minus", True, True),
+            (4, 24, 65, "union_minus", True, True), (4, 24, 128, "union_minus", True, True),
+            (2, 24, 600, "union_minus", True, True), (2, 40, 600, "union_others", False, True),
+            (2, 96, 65, "union_minus", True, True), (1, 400, 5, "union_minus", True, True),
+            (2, 96, 21, "inverse", True, True), (2, 128, 21, "inverse", False, False),
+            (2, 24, 65, "inverse", False, True)):
+        *_, err, atol = label_case(torch, pseudo_label, batch, size, joints, 6, gf_kind, fused,
+                                   normalize, size + joints, low=-3)
+        largest.append({"shape": [batch, size, size, joints], "gf_kind": gf_kind,
+                        "fused": fused, "normalize": normalize,
+                        "geometry": pseudo_label.launch_geometry(size, joints),
+                        "max_abs_err": err, "atol": atol})
     line("phase 2 pseudo-label kernel vs plain (GT torch.equal, GF atol)", {
-        "shapes": rows, "kinds_24x24": kinds, "largest": largest,
-        "launches": pseudo_label.launches - launches_before})
+        "shapes": rows, "heatmap_96_and_larger": at_96, "kinds_24x24": kinds,
+        "largest_and_groups": largest, "launches": pseudo_label.launches - launches_before})
     # the path writes GF alone; its 64² build is the largest of an iteration,
     # and the error is the worst of every case
-    worst = max([r["max_abs_err"] for r in rows + kinds + largest])
+    worst = max([r["max_abs_err"] for r in rows + at_96 + kinds + largest])
     top = rows[0]
     return dict(top, ms=top["gf_only_ms"], bound_ms=top["gf_only_bound_ms"], max_abs_err=worst)
 
@@ -1027,6 +1156,48 @@ def phase_training(torch, models, train, data, kernels, smi):
             "state": state, "fused": fused, "gens": (s_gen, t_gen)}
 
 
+IMAGE_96, HEATMAP_96 = 384, 96  # --image-size 384 --heatmap-size 96 (cli/args.py:29-30)
+
+
+def phase_training_96(torch, models, train, data, kernels, smi):
+    """One DA iteration at ``--image-size 384 --heatmap-size 96`` (ResNet-101,
+    batch 32 per domain, 288² stores), after one warm-up: the label kernel
+    builds ``rd_64``'s 96² GF (the earlier design refused maps above 90²),
+    three label launches an iteration, finite losses."""
+    from dahpe_tpu_torch.ops import pseudo_label
+
+    t0 = time.perf_counter()
+    stores = [data.DeviceDataStore(SyntheticSplit(64, RAW, seed=seed), device="cuda",
+                                   raw_size=RAW, verbose=False) for seed in (4, 5)]
+    model = build_model(torch, models, seed=10).cuda()
+    state = train.create_da_state(model, device="cuda", with_ema=True)
+    fused = train.make_fused_da_iteration(model, stores[0], stores[1], BATCH,
+                                          image_size=IMAGE_96, heatmap_size=HEATMAP_96,
+                                          share_target_features=True, ema_decay=0.99)
+    s_gen, t_gen = stores[0].generator(21), stores[1].generator(22)
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics, s_gen, t_gen = fused(state, s_gen, t_gen)  # warm-up: cuDNN's algorithms
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    kernels.reset()
+    t0 = time.perf_counter()
+    state, metrics, s_gen, t_gen = fused(state, s_gen, t_gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = kernels.read()
+    expected = dict(NO_LAUNCHES, render_gaussian=7, pseudo_labels=3, rotate3_fused=2)
+    if launches != expected:
+        raise AssertionError(f"training at heatmap 96: launches {launches}, expected {expected}")
+    losses = {k: float(metrics[k]) for k in ("loss_s", "loss_gf", "loss_gt")}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"training at heatmap 96: non-finite losses {losses}")
+    line(f"phase 5c DA training resnet101 {IMAGE_96}²/{HEATMAP_96}²/21, batch 32+32", {
+        "card": smi, "setup_and_warmup_s": setup_s, "ms_one_iteration": ms, "losses": losses,
+        "launches": launches, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "label_geometry_96": pseudo_label.launch_geometry(HEATMAP_96, JOINTS)})
+    return launches
+
+
 def phase_checkpoint(torch, trained, root):
     """Save, restore and drain-stall times of the full DA state of phase 5
     (ResNet-101 multi-head model, five momentum partitions, EMA): a
@@ -1296,6 +1467,10 @@ def main() -> int:
     checkpoint = phase_checkpoint(torch, trained, root)
     bare_ms = trained["ms"]
     del trained
+    torch.cuda.empty_cache()
+    kernels.reset()  # main path 2 at heatmap 96
+    for name, count in phase_training_96(torch, models, train, data, kernels, smi).items():
+        launches[name] += count
     torch.cuda.empty_cache()
     cli_launches = phase_cli(torch, kernels, smi, bare_ms, checkpoint)
     for name, count in cli_launches.items():

@@ -114,8 +114,29 @@
 //   more registers a thread, was no faster. ptxas: 40 registers, 8,224
 //   bytes of static tables beside 13,328 bytes of words, 88 bytes of stack
 //   at 3 channels.
-// shear_u16 keeps the per-pixel design (one thread per output pixel, whole
-// canvas stored).
+// shear_u16: one shear with one shift and one weight a line.
+//   What held the previous design back (one thread per output pixel in 32x8
+//   blocks, each recomputing its line's shift and weight, two 2-byte taps
+//   and a 2-byte store per channel; on ShY a warp's 32 columns have their
+//   own shifts, so one warp load touched up to 32 sectors): 0.0740 ms (ShX)
+//   and 0.0762 ms (ShY) at (32, 3, 412^2), 3.8x the byte bound.
+//   ShX (shear_x_kernel): a thread per aligned 8-byte word of output row
+//   (four pixels), the line's shift and weight computed once for every
+//   plane, the five taps from two aligned 8-byte loads and funnel shifts,
+//   one 8-byte store; the row's head and tail (rows of a 301-wide canvas
+//   start at any 2-byte phase) pixel by pixel. ShY (shear_y_kernel): tiles
+//   of 64 columns (two a thread, 4-byte loads and stores, where the rows are
+//   4-byte aligned; else 32) by 104 rows of one plane; the tile's window of
+//   input rows, bounded by its end columns because the shift is monotone,
+//   staged in shared memory with coalesced loads; each column slides down
+//   its taps, one shared load an output. Both bit-identical to the plain
+//   version (the same line_shear and blend).
+//   Measured (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3, 700.00 W): at
+//   (32, 3, 412^2, u16) ShX 0.0284 ms and ShY 0.0340 ms against a 0.0195 ms
+//   byte bound (1.46x and 1.75x). What is left: ShX reads each input word
+//   twice through L1 and its index arithmetic runs per 4 pixels; ShY reads
+//   ~1.45x the tile's rows into shared memory (the window's spread over 64
+//   columns at |b| <= sin 45) and waits at one barrier a tile.
 //
 // Exactness, shared by all kernels through line_shear and blend: s, floor and
 // the weight are float32 as in the JAX package, and the product t * (l - c)
@@ -129,8 +150,6 @@
 
 namespace {
 
-constexpr int kBlockX = 32;  // the one-shear kernel's blocks
-constexpr int kBlockY = 8;
 constexpr int kTile = 32;    // rotate3_fused: output tile side
 constexpr int kCols = 4;     // output columns per thread
 constexpr int kTileThreads = kTile * kTile / kCols;
@@ -252,25 +271,6 @@ struct ChwCanvas {
 
   __device__ int load(int pixel, int c) const {
     return (int)__ldg(image + (size_t)c * height * width + pixel);
-  }
-};
-
-// (B, C, H, W) uint16: the whole canvas, the one-shear kernel's store.
-struct U16Store {
-  uint16_t* out;
-  int h, w, channels;
-
-  __device__ int height() const { return h; }
-  __device__ int width() const { return w; }
-
-  __device__ U16Store at(int b) const {
-    U16Store s = *this;
-    s.out = out + (size_t)b * channels * h * w;
-    return s;
-  }
-
-  __device__ void store(int c, int y, int x, int v) const {
-    out[(size_t)c * h * w + (size_t)y * w + x] = (uint16_t)v;
   }
 };
 
@@ -427,7 +427,11 @@ constexpr size_t kTableBytes =
 template <class Kernel>
 cudaError_t allow_shared(Kernel kernel, size_t smem) {
   if (smem + kTableBytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // a refused call stays the runtime's last error: take it off, so that the
+  // next launch's check does not report it again
+  return err == cudaSuccess ? err : cudaGetLastError();
 }
 
 // The first of lines [0, count) whose packed shift (d + kmax) satisfies
@@ -945,38 +949,188 @@ __global__ void __launch_bounds__(kTileThreads, 6) rotate3_u16_kernel(
                                  xo0 + l3.d, l3.w, channels, width, xo0, row_out, plane);
 }
 
-// ---- the per-pixel kernel of the one-shear mode
+// ---- the one-shear mode: a shear line has one shift and one weight
 
-// One shear: axis 2 shifts row yo along W, axis 1 shifts column xo along H.
-template <class Canvas, class Store>
-__global__ void shear1_kernel(Canvas canvas, Store output,
-                              const float* __restrict__ slope, int channels,
-                              int kmax, int axis) {
-  const int xo = blockIdx.x * kBlockX + threadIdx.x;
-  const int yo = blockIdx.y * kBlockY + threadIdx.y;
-  const int b = blockIdx.z;
-  if (xo >= output.width() || yo >= output.height()) return;
-  const Canvas p = canvas.at(b);
-  const Store o = output.at(b);
-  int lo, hi;
-  Shear l;
-  if (axis == 2) {
-    l = line_shear(slope[b], yo, 0.5f * (float)(p.rows() - 1), kmax);
-    lo = p.locate(yo, xo + l.d);
-    hi = p.locate(yo, xo + l.d + 1);
-  } else {
-    l = line_shear(slope[b], xo, 0.5f * (float)(p.cols() - 1), kmax);
-    lo = p.locate(yo + l.d, xo);
-    hi = p.locate(yo + l.d + 1, xo);
-  }
-  for (int c = 0; c < channels; ++c)
-    o.store(c, yo, xo,
-            blend(lo < 0 ? 0 : p.load(lo, c), hi < 0 ? 0 : p.load(hi, c), l.w));
+constexpr int kShearThreads = 256;
+constexpr int kShearCols = 32;  // ShY: columns of a tile, one a thread of a warp
+constexpr int kShearRowStep = kShearThreads / kShearCols;
+
+// The 8.8 element at e of a row as an int.
+__device__ __forceinline__ int u16_at(const uint16_t* __restrict__ row, int e) {
+  return (int)__ldg(row + e);
 }
 
-dim3 grid_of(int height, int width, int batch) {
-  return dim3((width + kBlockX - 1) / kBlockX, (height + kBlockY - 1) / kBlockY,
-              batch);
+// ShX (axis 2): thread g takes group j = g % groups of line g / groups = (b,
+// y): the four output pixels of row y whose addresses form one aligned
+// 8-byte word of each plane (x0 = 4 j - a, a the row's phase in its plane:
+// the address's 2-byte index mod 4; groups = (W + 2) / 4 + 1 covers a row
+// at any phase). The line's shift and weight are computed once and serve
+// every plane. The group's 5 source taps x0 + d .. x0 + d + 4 are, when
+// they lie in the row, elements r .. r + 4 of the two aligned words at
+// x0 + d - r (r their phase), read as two 8-byte loads (both words hold a
+// tap of the row, so the read never leaves the row's pages) and picked out
+// with funnel shifts by 16 r bits; otherwise each tap is read alone, 0
+// outside [0, W). A group inside the row is stored as one 8-byte word, the
+// head and tail groups pixel by pixel.
+template <int kC>
+__global__ void __launch_bounds__(kShearThreads) shear_x_kernel(
+    const uint16_t* __restrict__ image, const float* __restrict__ slope,
+    uint16_t* __restrict__ out, int channels, int height, int width, int kmax, int groups,
+    unsigned total) {
+  const unsigned g = blockIdx.x * kShearThreads + threadIdx.x;
+  if (g >= total) return;
+  const int j = (int)(g % (unsigned)groups);
+  const unsigned line = g / (unsigned)groups;
+  const int y = (int)(line % (unsigned)height), b = (int)(line / (unsigned)height);
+  const int nc = kC ? kC : channels;
+  const Shear l = line_shear(slope[b], y, 0.5f * (float)(height - 1), kmax);
+#pragma unroll
+  for (int c = 0; c < nc; ++c) {
+    const size_t row = (((size_t)b * nc + c) * height + y) * width;
+    const uint16_t* src = image + row;
+    uint16_t* dst = out + row;
+    const int x0 = 4 * j - (int)(((uintptr_t)dst >> 1) & 3);
+    if (x0 >= width) continue;  // past this plane's row
+    const int s0 = x0 + l.d;
+    int v[5];
+    if (s0 >= 0 && s0 + 4 < width) {
+      const int r = (int)(((uintptr_t)(src + s0) >> 1) & 3);
+      const uint2* q = reinterpret_cast<const uint2*>(src + s0 - r);
+      const uint2 u0 = __ldg(q), u1 = __ldg(q + 1);
+      const bool upper = r >= 2;
+      const unsigned sh = (r & 1) * 16;
+      const uint32_t w0 = upper ? u0.y : u0.x, w1 = upper ? u1.x : u0.y,
+                     w2 = upper ? u1.y : u1.x;
+      const uint32_t e01 = __funnelshift_r(w0, w1, sh), e23 = __funnelshift_r(w1, w2, sh);
+      v[0] = (int)(e01 & 0xFFFFu);
+      v[1] = (int)(e01 >> 16);
+      v[2] = (int)(e23 & 0xFFFFu);
+      v[3] = (int)(e23 >> 16);
+      v[4] = (int)((w2 >> sh) & 0xFFFFu);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 5; ++i)
+        v[i] = (unsigned)(s0 + i) < (unsigned)width ? u16_at(src, s0 + i) : 0;
+    }
+    int o[kCols];
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) o[i] = blend(v[i], v[i + 1], l.w);
+    if (x0 >= 0 && x0 + kCols <= width) {
+      store4(dst + x0, o, true, kCols);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kCols; ++i)
+        if ((unsigned)(x0 + i) < (unsigned)width) dst[x0 + i] = (uint16_t)o[i];
+    }
+  }
+}
+
+// A thread's kPer adjacent 8.8 pixels as one word: ShY moves rows of an
+// even width two pixels a load and a store.
+template <int kPer>
+struct Lanes;
+template <>
+struct Lanes<1> {
+  using Type = uint16_t;
+};
+template <>
+struct Lanes<2> {
+  using Type = uint32_t;
+};
+
+// ShY (axis 1): a block per tile of kPer * kShearCols columns by `rows`
+// output rows of one plane (blockIdx.z = b C + c); a thread takes kPer
+// adjacent columns (kPer = 2 where rows are 4-byte aligned: an even width
+// and an aligned canvas) and a run of rows / kShearRowStep consecutive
+// rows. d is monotone along the columns, so the tile's end columns bound the
+// rows its taps read: [y0 + d_min, y_end + d_max], cut to [-1, H] (rows -1
+// and H stand for the zeros outside the canvas). That window of the plane is
+// staged in shared memory with coalesced loads (a warp reads 64 or 128
+// consecutive bytes of one row, a thread kPer pixels in one load), then each
+// column slides down its taps (row r + 1 of one output is row r of the
+// next), so an output takes one shared load, one blend, and a warp stores
+// 64 or 128 consecutive bytes of a row. The window's rows of kPer * 64 bytes
+// bank by column alone (a thread's column pair is one bank at kPer = 2), so
+// the taps do not conflict. `capacity` rows are allocated
+// (ops/shear.py:shear_y_plan: at most min(rows + 2 kmax + 1, H + 2), cut to
+// 32 KB); a tile whose window exceeds them (slopes steeper than about 2.4 at
+// the path's canvas) reads its taps from global memory instead, counted in
+// direct_tiles.
+template <int kPer>
+__global__ void __launch_bounds__(kShearThreads) shear_y_kernel(
+    const uint16_t* __restrict__ image, const float* __restrict__ slope,
+    uint16_t* __restrict__ out, int channels, int height, int width, int kmax, int rows,
+    int capacity, int* __restrict__ direct_tiles) {
+  using Word = typename Lanes<kPer>::Type;
+  constexpr int kTileCols = kShearCols * kPer;
+  extern __shared__ __align__(16) uint16_t window[];
+  const int b = blockIdx.z / channels;
+  const size_t plane = (size_t)height * width;
+  const uint16_t* src = image + blockIdx.z * plane;
+  uint16_t* dst = out + blockIdx.z * plane;
+  const int x0 = blockIdx.x * kTileCols, y0 = blockIdx.y * rows;
+  const int tx = threadIdx.x % kShearCols, ty = threadIdx.x / kShearCols;
+  const int xa = x0 + kPer * tx;  // the thread's first column
+  const int y_end = min(y0 + rows, height);
+  const float t = slope[b], center = 0.5f * (float)(width - 1);
+  Shear l[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) l[i] = line_shear(t, xa + i, center, kmax);
+  const int d0 = line_shear(t, x0, center, kmax).d;
+  const int d1 = line_shear(t, min(x0 + kTileCols, width) - 1, center, kmax).d;
+  const int lo = min(max(y0 + min(d0, d1), -1), height);
+  const int hi = max(min(y_end + max(d0, d1), height), -1);
+  const int span = hi - lo + 1;
+  const int per = rows / kShearRowStep;
+  const int ys = y0 + ty * per, ye = min(ys + per, y_end);  // the thread's rows
+
+  if (span > capacity) {  // the direct walk
+    if (threadIdx.x == 0 && direct_tiles != nullptr) atomicAdd(direct_tiles, 1);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (xa + i >= width) break;
+      for (int y = ys; y < ye; ++y) {
+        const int r = y + l[i].d;
+        const int u = (unsigned)r < (unsigned)height ? u16_at(src, r * width + xa + i) : 0;
+        const int v =
+            (unsigned)(r + 1) < (unsigned)height ? u16_at(src, (r + 1) * width + xa + i) : 0;
+        dst[(size_t)y * width + xa + i] = (uint16_t)blend(u, v, l[i].w);
+      }
+    }
+    return;
+  }
+  Word* staged = reinterpret_cast<Word*>(window);
+#pragma unroll 4
+  for (int i = ty; i < span; i += kShearRowStep) {
+    const int r = lo + i;
+    staged[i * kShearCols + tx] =
+        (unsigned)r < (unsigned)height && xa < width
+            ? __ldg(reinterpret_cast<const Word*>(src + (size_t)r * width + xa))
+            : (Word)0;
+  }
+  __syncthreads();
+  if (xa >= width || ys >= ye) return;
+  int u[kPer], r[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    r[i] = ys + l[i].d;
+    u[i] = window[(min(max(r[i], -1), height) - lo) * kTileCols + kPer * tx + i];
+  }
+  uint16_t* o = dst + (size_t)ys * width + xa;
+  for (int y = ys; y < ye; ++y, o += width) {
+    int v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int next = window[(min(max(r[i] + 1, -1), height) - lo) * kTileCols + kPer * tx + i];
+      v[i] = blend(u[i], next, l[i].w);
+      u[i] = next;
+      ++r[i];
+    }
+    if (kPer == 2)
+      *reinterpret_cast<uint32_t*>(o) = (uint32_t)v[0] | (uint32_t)v[kPer - 1] << 16;
+    else
+      *o = (uint16_t)v[0];
+  }
 }
 
 template <typename T>
@@ -1056,14 +1210,44 @@ extern "C" int rotate3_u16(const void* image, const void* slope_a,
 }
 
 // shear_u16 — image, out: (B, C, H, W) uint16; slope: (B,) float32; axis 2
-// (ShX) or 1 (ShY).
+// (ShX) or 1 (ShY). pairs, rows, capacity: ShY's two pixels a thread (rows
+// 4-byte aligned), tile rows and the window rows a block allocates
+// (ops/shear.py:shear_y_plan); direct_tiles as above (ShY tiles whose window
+// exceeds the capacity).
 extern "C" int shear_u16(const void* image, const void* slope, void* out,
                          int batch, int channels, int height, int width,
-                         int kmax, int axis, void* stream) {
-  const ChwCanvas canvas{(const uint16_t*)image, height, width, channels};
-  const U16Store store{(uint16_t*)out, height, width, channels};
-  shear1_kernel<<<grid_of(height, width, batch), dim3(kBlockX, kBlockY), 0,
-                  (cudaStream_t)stream>>>(canvas, store, (const float*)slope,
-                                          channels, kmax, axis);
+                         int kmax, int axis, int pairs, int rows, int capacity,
+                         void* direct_tiles, void* stream) {
+  const uint16_t* in = (const uint16_t*)image;
+  uint16_t* o = (uint16_t*)out;
+  const float* t = (const float*)slope;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (axis == 2) {
+    const int groups = (width + 2) / 4 + 1;
+    const unsigned total = (unsigned)batch * (unsigned)height * (unsigned)groups;
+    const unsigned blocks = (total + kShearThreads - 1) / kShearThreads;
+    if (channels == 3)
+      shear_x_kernel<3><<<blocks, kShearThreads, 0, st>>>(in, t, o, channels, height, width,
+                                                          kmax, groups, total);
+    else
+      shear_x_kernel<0><<<blocks, kShearThreads, 0, st>>>(in, t, o, channels, height, width,
+                                                          kmax, groups, total);
+    return (int)cudaGetLastError();
+  }
+  if (axis != 1 || rows < kShearRowStep || rows % kShearRowStep != 0 || capacity < 1 ||
+      (pairs && ((width & 1) || ((uintptr_t)image & 3) || ((uintptr_t)out & 3))))
+    return (int)cudaErrorInvalidValue;
+  const int per = pairs ? 2 : 1;
+  const size_t smem = (size_t)capacity * kShearCols * per * sizeof(uint16_t);
+  const auto kernel = pairs ? shear_y_kernel<2> : shear_y_kernel<1>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)cudaGetLastError();
+  }
+  const int cols = kShearCols * per;
+  const dim3 grid((width + cols - 1) / cols, (height + rows - 1) / rows, batch * channels);
+  kernel<<<grid, kShearThreads, smem, st>>>(in, t, o, channels, height, width, kmax, rows,
+                                            capacity, (int*)direct_tiles);
   return (int)cudaGetLastError();
 }

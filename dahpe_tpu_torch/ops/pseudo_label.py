@@ -23,11 +23,14 @@ from dahpe_tpu_torch.ops.gaussian import _two_sigma_sq, render_gaussian_plain
 LIB_NAME = "pseudo_label"
 SOURCES = ["pseudo_label.cu"]
 GF_KINDS = {"union_minus": 0, "inverse": 1, "union_others": 2}
-MAX_JOINTS = 64
-MAX_PIXELS = 8192  # S*S the kernel takes (the sum table of S <= 90)
-CLUSTER_BLOCKS = 8  # blocks of one batch element (csrc/pseudo_label.cu)
+CLUSTER_BLOCKS = 8  # blocks of one batch element and joint group (csrc/pseudo_label.cu)
+SMALL_MAP = 8192  # pixels of the largest map the 8-block kernel takes (90²)
+GROUP_JOINTS = 64  # joints a block keeps at most
+TABLE_PIXELS = 8192  # the general kernel's sum table (32 KB); longer ranges take tiles
 THREADS = 512
-SHARED_LIMIT = 232448 - 2048  # 227 KB a block may use, less the static peaks, maxima, Gaussians
+# 227 KB a block may use, less each kernel's static arrays (peaks, maxima, Gaussians)
+SMALL_SHARED_LIMIT = 232448 - 2048
+SHARED_LIMIT = 232448 - 4096
 
 # kernel launches made by pseudo_labels_cuda since the last reset
 launches = 0
@@ -38,26 +41,41 @@ def _lib() -> ctypes.CDLL:
     fn = lib.pseudo_labels_f32
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, i, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
 
 def launch_geometry(size: int, joints: int) -> dict:
-    """How ``csrc/pseudo_label.cu`` covers one ``size x size x joints`` map:
-    a cluster of ``blocks`` blocks, block ``r`` owning pixels ``[r * pixels,
-    min((r + 1) * pixels, size²))`` with all joints, ``threads`` threads (a
-    multiple of ``joints``, so each thread keeps one joint), and
-    ``shared_bytes`` of dynamic shared memory: the sum table of its pixels
-    and, when ``staged``, their GF. Where staging does not fit the 227 KB a
-    block may use (``joints`` = 64 near ``size`` = 90), ``staged`` is False
-    and the kernel recomputes GF in a second pass."""
+    """How ``csrc/pseudo_label.cu`` covers one ``size x size x joints`` map.
+
+    Per batch element, a cluster of ``blocks`` (8) blocks for each of
+    ``groups`` groups of at most ``GROUP_JOINTS`` joints (``K // groups``
+    each, the first ``K % groups`` one more, in order). Block ``r`` owns
+    pixels ``[r * pixels, min((r + 1) * pixels, size²))`` with its group's
+    joints, ``threads`` threads (a multiple of the largest group, so each
+    thread keeps one joint), a sum table of ``tile`` pixels (a longer range
+    walks it in tiles) and ``shared_bytes`` of dynamic shared memory: the
+    table and, when ``staged``, the range's GF. Staging needs the GF beside
+    the table within the 227 KB a block may use; where it does not fit,
+    ``staged`` is False and the kernel recomputes GF in a second pass.
+
+    The maps of at most ``SMALL_MAP`` pixels and ``GROUP_JOINTS`` joints
+    (every build of the training path) take the 8-block kernel (``wide``
+    False: one group, the whole range in the table); the others take the
+    general kernel."""
+    wide = size * size > SMALL_MAP or joints > GROUP_JOINTS
     pixels = -(-size * size // CLUSTER_BLOCKS)
-    table = 4 * (-(-pixels // 4) * 4)  # padded so the staged run is 16-byte aligned
-    staged = table + 4 * pixels * joints <= SHARED_LIMIT
-    return {"blocks": CLUSTER_BLOCKS, "pixels": pixels,
-            "threads": (THREADS // joints) * joints, "staged": staged,
-            "shared_bytes": table + (4 * pixels * joints if staged else 0)}
+    groups = -(-joints // GROUP_JOINTS)
+    group_joints = -(-joints // groups)
+    tile = max(1, min(pixels, TABLE_PIXELS))
+    table = 4 * (-(-tile // 4) * 4)  # padded so the staged run is 16-byte aligned
+    limit = SHARED_LIMIT if wide else SMALL_SHARED_LIMIT
+    staged = table + 4 * pixels * group_joints <= limit
+    return {"wide": wide, "blocks": CLUSTER_BLOCKS, "pixels": pixels, "groups": groups,
+            "group_joints": group_joints, "threads": (THREADS // group_joints) * group_joints,
+            "tile": tile, "staged": staged,
+            "shared_bytes": table + (4 * pixels * group_joints if staged else 0)}
 
 
 def pseudo_labels_plain(
@@ -116,10 +134,6 @@ def pseudo_labels_cuda(
         raise ValueError(f"unknown gf_kind {gf_kind!r}; choices: {sorted(GF_KINDS)}")
     b, k, _ = peaks.shape
     shape = (b, out_size, out_size, k)
-    if not 1 <= k <= MAX_JOINTS:
-        raise ValueError(f"pseudo_labels_cuda: {k} joints, the kernel takes 1..{MAX_JOINTS}")
-    if out_size * out_size > MAX_PIXELS:
-        raise ValueError(f"pseudo_labels_cuda: {out_size}² maps exceed {MAX_PIXELS} pixels")
     if fused_target is not None:
         if fused_target.device != peaks.device or fused_target.dtype != torch.float32:
             raise ValueError("pseudo_labels_cuda: fused_target must be float32 beside peaks")
@@ -143,10 +157,12 @@ def pseudo_labels_cuda(
             peaks.data_ptr(), None if fused_target is None else fused_target.data_ptr(),
             None if gt is None else gt.data_ptr(), gf.data_ptr(), b, int(out_size), k,
             _two_sigma_sq(sigma), int(reach), GF_KINDS[gf_kind], int(bool(normalize)),
-            int(geometry["staged"]), geometry["shared_bytes"], stream,
+            int(geometry["wide"]), geometry["groups"], geometry["threads"],
+            geometry["tile"], int(geometry["staged"]), geometry["shared_bytes"], stream,
         )
     if err != 0:
-        raise RuntimeError(f"pseudo_labels kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"pseudo_labels kernel launch failed: cudaError {err} "
+                           f"(B={b}, S={out_size}, K={k}, {geometry})")
     launches += 1
     return gt, gf
 

@@ -49,7 +49,7 @@ _SIGNATURES = {
     "rotate3_fused_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "rotate3_fused_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "rotate3_u16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
-    "shear_u16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "shear_u16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 
@@ -60,6 +60,12 @@ _SIGNATURES = {
 TILE = 32
 SLOPE_CAPS = (0.4143, 0.7072)
 MAX_STAGED_CHANNELS = 4  # channels that fit one packed word (csrc/rotate3.cu)
+# the one-shear mode (csrc/rotate3.cu: shear_x_kernel, shear_y_kernel): ShY's
+# tiles are SHEAR_COLS threads wide (one or two columns each) by at most
+# SHEAR_ROWS rows, a multiple of SHEAR_ROW_STEP; a block's window of input
+# rows takes at most SHEAR_WINDOW_BYTES of shared memory (seven blocks an SM)
+SHEAR_COLS, SHEAR_ROWS, SHEAR_ROW_STEP = 32, 128, 8
+SHEAR_WINDOW_BYTES = 32 * 1024
 
 
 def _lib() -> ctypes.CDLL:
@@ -163,6 +169,37 @@ def stage_raw_bytes(channels: int, itemsize: int) -> int:
     def rows(count, cols):
         return count * (((cols * channels + 15) // 16 + 1) | 1) * 16
     return max(rows(h1, w1), rows(w1, h1))
+
+
+def shear_x_groups(width: int) -> int:
+    """Threads a row of ``csrc/rotate3.cu:shear_x_kernel`` takes: one per
+    aligned 8-byte word a row of ``width`` pixels can touch at any phase."""
+    return (width + 2) // 4 + 1
+
+
+def shear_y_plan(height: int, width: int, kmax: int, pairs: bool | None = None) -> dict:
+    """How ``csrc/rotate3.cu:shear_y_kernel`` tiles an ``H x W`` plane:
+    ``pairs``, two columns a thread (4-byte loads and stores; rows must be
+    4-byte aligned, so an even ``width``, the default, and an aligned
+    canvas); ``cols`` columns and ``rows`` output rows a tile (the fewest row
+    tiles of at most ``SHEAR_ROWS`` rows, evened out and rounded up to
+    ``SHEAR_ROW_STEP``); ``tiles`` = (column tiles, row tiles); and
+    ``capacity`` rows of ``cols`` pixels of shared memory (``shared_bytes``)
+    for a block's window: the rows its taps can read, ``rows + 2 kmax + 1``
+    (the shift lies in ``[-kmax, kmax]``) or ``H + 2`` (the plane and a zero
+    row on each side), whichever is fewer, cut to ``SHEAR_WINDOW_BYTES``.
+    Only where that cut binds (``direct_possible``) can a tile's window,
+    ``rows`` plus the shift's spread over its columns, exceed the capacity
+    and take the direct walk."""
+    pairs = width % 2 == 0 if pairs is None else pairs
+    cols = SHEAR_COLS * (2 if pairs else 1)
+    per = -(-height // -(-height // SHEAR_ROWS))
+    rows = -(-per // SHEAR_ROW_STEP) * SHEAR_ROW_STEP
+    need = min(rows + 2 * kmax + 1, height + 2)
+    capacity = max(1, min(need, SHEAR_WINDOW_BYTES // (2 * cols)))
+    return {"pairs": pairs, "cols": cols, "rows": rows,
+            "tiles": (-(-width // cols), -(-height // rows)), "capacity": capacity,
+            "shared_bytes": capacity * cols * 2, "direct_possible": capacity < need}
 
 
 def _to_fixed(x: torch.Tensor) -> torch.Tensor:
@@ -361,9 +398,14 @@ def rotate3_plain(images: torch.Tensor, slope_a: torch.Tensor, slope_b: torch.Te
 
 
 def shear_cuda(images: torch.Tensor, slope: torch.Tensor, *, kmax: int,
-               axis: int = 2) -> torch.Tensor:
+               axis: int = 2, direct_tiles: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the one-shear kernel on the current stream; contiguous uint16
-    ``images`` and float32 ``slope`` on one CUDA device."""
+    ``images`` and float32 ``slope`` on one CUDA device. ShX shifts each row
+    in aligned 8-byte words; ShY stages each tile's window of rows in shared
+    memory (:func:`shear_y_plan`), two columns a thread where the canvas's
+    rows are 4-byte aligned. ``direct_tiles``, an int32 ``(1,)`` CUDA
+    tensor, gets 1 added for each ShY tile whose window exceeded the
+    allocation and read its taps from global memory instead."""
     global shear_launches
     _check_u16("shear_cuda", images)
     _check_cuda("shear_cuda", (images, slope))
@@ -372,13 +414,19 @@ def shear_cuda(images: torch.Tensor, slope: torch.Tensor, *, kmax: int,
         raise ValueError(f"shear_cuda: need a float32 slope per image, ({b},)")
     if axis not in (1, 2):
         raise ValueError(f"shear_cuda: axis must be 1 or 2, got {axis}")
+    if direct_tiles is not None and (direct_tiles.dtype != torch.int32
+                                     or direct_tiles.device != images.device):
+        raise ValueError("shear_cuda: direct_tiles must be int32 beside the images")
     out = torch.empty_like(images)
     if out.numel() == 0:
         return out
+    plan = shear_y_plan(h, w, int(kmax), pairs=w % 2 == 0 and images.data_ptr() % 4 == 0)
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
-        _check_launch(_lib().shear_u16(images.data_ptr(), slope.data_ptr(), out.data_ptr(),
-                                       b, c, h, w, int(kmax), int(axis), stream), "shear")
+        _check_launch(_lib().shear_u16(
+            images.data_ptr(), slope.data_ptr(), out.data_ptr(), b, c, h, w, int(kmax),
+            int(axis), int(plan["pairs"]), plan["rows"], plan["capacity"],
+            None if direct_tiles is None else direct_tiles.data_ptr(), stream), "shear")
     shear_launches += 1
     return out
 

@@ -10,7 +10,10 @@
   every quarter-turn);
 - the label launch geometry (``ops/pseudo_label.py:launch_geometry``) covers
   each element of a map exactly once and stays within 227 KB of shared
-  memory, or turns staging off, for every ``S² <= 8192`` and ``K <= 64``;
+  memory, or turns staging off, for every ``S <= 256`` at ``K <= 64`` and
+  for joint groups up to ``K = 600``; the plain labels and the disparity
+  losses match the JAX package at the sizes the kernel refused before
+  (96² maps, 65 joints);
 - ``pseudo_labels(..., with_gt=False)`` gives the full call's GF and the
   Pallas kernel's (interpret mode), at ``tests/test_pallas_pseudo_label.py``'s
   tolerances (atol 1e-6, 1e-5 with a fused target).
@@ -42,8 +45,10 @@ import jax.numpy as jnp
 
 from dahpe_tpu.ops.pallas.gaussian import render_gaussian_pallas
 from dahpe_tpu.ops.pallas.pseudo_label import pseudo_labels_pallas
+from dahpe_tpu.train import disparity as jdisparity
 
 from dahpe_tpu_torch.ops import _build, gaussian, pseudo_label, shear
+from dahpe_tpu_torch.train import disparity
 
 A_MAX, B_MAX = np.float32(np.tan(np.pi / 8)), np.float32(np.sin(np.pi / 4))
 
@@ -211,51 +216,153 @@ def test_stage_capacity_fits_shared_memory():
 
 def _elements(size, joints):
     """The flat (pixel, joint) indices the kernel's loops visit, from the
-    launch geometry: block r of the cluster, thread t keeps joint t % K and
-    pixels t // K, t // K + threads // K, ... of its range."""
+    launch geometry: block r of group g's cluster keeps joint k0 + t % kj in
+    thread t (kj = K // groups, one more for the first K % groups groups, k0
+    the joints of the groups before; threads from step * kj on idle, step =
+    threads // kj) and pixels t // kj, t // kj + step, ... of its range,
+    walked in tiles of the sum table."""
     geo = pseudo_label.launch_geometry(size, joints)
-    threads, chunk, pixels = geo["threads"], geo["pixels"], size * size
+    threads, chunk, pixels, groups = geo["threads"], geo["pixels"], size * size, geo["groups"]
+    assert geo["tile"] >= 1 and (geo["tile"] >= chunk or geo["tile"] == pseudo_label.TABLE_PIXELS)
+    assert geo["wide"] or (geo["tile"] == chunk and groups == 1)
     tid = np.arange(threads)
-    k, first, step = tid % joints, tid // joints, threads // joints
     seen = []
-    for r in range(geo["blocks"]):
-        p0 = min(r * chunk, pixels)
-        count = min(chunk, pixels - p0)
-        for i in range(-(-count // step)):
-            p = first + i * step
-            ok = p < count
-            seen.append((p0 + p[ok]) * joints + k[ok])
+    for g in range(groups):
+        base, longer = divmod(joints, groups)
+        k0, kj = g * base + min(g, longer), base + (g < longer)
+        assert 1 <= kj <= min(geo["group_joints"], pseudo_label.GROUP_JOINTS)
+        step = threads // kj
+        active = tid < step * kj
+        k, first = k0 + tid[active] % kj, tid[active] // kj
+        for r in range(geo["blocks"]):
+            p0 = min(r * chunk, pixels)
+            count = min(chunk, pixels - p0)
+            for t0 in range(0, count, geo["tile"]):  # the table's tiles
+                n = min(geo["tile"], count - t0)
+                lo = np.maximum(first, t0 + (first - t0) % step)  # each thread's first p >= t0
+                for i in range(-(-n // step) + 1):
+                    p = lo + i * step
+                    ok = p < t0 + n
+                    assert ((p[ok] - t0 >= 0) & (p[ok] - t0 < n)).all()  # table index
+                    seen.append((p0 + p[ok]) * joints + k[ok])
     return np.concatenate(seen)
 
 
+LARGE_MAPS = (91, 96, 97, 127, 128, 129, 181, 255, 256)
+
+
 @pytest.mark.parametrize("size,joints", [(s, None) for s in (16, 32, 64, 90)]
-                         + [(None, k) for k in (1, 21, 64)])
+                         + [(None, k) for k in (1, 21, 64, 65, 128, 600)]
+                         + [("large", 21), ("large", 65), ("large", 128)])
 def test_label_geometry_covers_each_element_once(size, joints):
     """Every element of an S x S x K map is visited by exactly one thread of
-    one block, for every K at the path's sizes and every S at K = 1, 21, 64."""
-    pairs = ([(size, k) for k in range(1, pseudo_label.MAX_JOINTS + 1)] if joints is None
-             else [(s, joints) for s in range(1, 91)])
+    one block: for every K <= 64 at the path's sizes, every S <= 90 at K = 1,
+    21, 64, every S <= 24 at K = 65, 128, 600 (joint groups), and the large
+    maps (second pass and tiled tables at 256²) at K = 21, up to 128² at K =
+    65 and 128."""
+    if joints is None:
+        pairs = [(size, k) for k in range(1, pseudo_label.GROUP_JOINTS + 1)]
+    elif size == "large":
+        pairs = [(s, joints) for s in LARGE_MAPS if joints == 21 or s <= 128]
+    else:
+        pairs = [(s, joints) for s in range(1, 91 if joints <= 64 else 25)]
     for s, k in pairs:
         seen = np.sort(_elements(s, k))
         np.testing.assert_array_equal(seen, np.arange(s * s * k), err_msg=f"S={s} K={k}")
 
 
+def _check_geometry(s, k):
+    geo = pseudo_label.launch_geometry(s, k)
+    kj = geo["group_joints"]
+    assert geo["groups"] == -(-k // pseudo_label.GROUP_JOINTS) and kj <= pseudo_label.GROUP_JOINTS
+    assert geo["groups"] * kj >= k > (geo["groups"] - 1) * kj
+    assert geo["threads"] % kj == 0 and kj <= geo["threads"] <= pseudo_label.THREADS
+    assert geo["pixels"] == -(-s * s // geo["blocks"])
+    assert geo["blocks"] == 8
+    assert geo["wide"] == (s * s > 8192 or k > 64)
+    if geo["wide"]:
+        assert 1 <= geo["tile"] <= min(max(geo["pixels"], 1), pseudo_label.TABLE_PIXELS)
+        limit = pseudo_label.SHARED_LIMIT
+    else:  # the 8-block kernel: the range's sums in one table
+        assert geo["tile"] == geo["pixels"] and geo["groups"] == 1
+        limit = pseudo_label.SMALL_SHARED_LIMIT
+    assert geo["shared_bytes"] <= limit <= pseudo_label.SMALL_SHARED_LIMIT
+    table = 4 * (-(-geo["tile"] // 4) * 4)
+    fits = table + 4 * geo["pixels"] * kj <= limit
+    assert geo["staged"] == fits
+    assert geo["shared_bytes"] == table + (4 * geo["pixels"] * kj if fits else 0)
+    return geo
+
+
 def test_label_geometry_fits_the_block():
-    """For every S with S² <= 8192 and every K <= 64: threads a multiple of K
-    within 1024, shared memory within 227 KB, and staging only where GF fits
-    beside the sum table; the path's shapes all stage."""
-    for s in range(1, 91):
-        for k in range(1, pseudo_label.MAX_JOINTS + 1):
-            geo = pseudo_label.launch_geometry(s, k)
-            assert geo["threads"] % k == 0 and k <= geo["threads"] <= 1024
-            assert geo["blocks"] * geo["pixels"] >= s * s
-            assert geo["shared_bytes"] <= pseudo_label.SHARED_LIMIT
-            table = 4 * (-(-geo["pixels"] // 4) * 4)
-            fits = table + 4 * geo["pixels"] * k <= pseudo_label.SHARED_LIMIT
-            assert geo["staged"] == fits
-            assert geo["shared_bytes"] == table + (4 * geo["pixels"] * k if fits else 0)
-    assert all(pseudo_label.launch_geometry(s, 21)["staged"] for s in range(1, 91))
+    """For every S <= 256 and every K <= 64, and for K = 65 .. 600 at S <= 32
+    and the large maps: joint groups of at most 64, threads a multiple of
+    the group within 512, the blocks covering the map, the sum table within
+    8192 pixels, shared memory within 227 KB, and staging only where GF fits
+    beside the table; the path's shapes all stage, as do 96² and 128² at K
+    = 21; 90² at K = 64 and 256² take the second pass."""
+    for s in range(1, 257):
+        for k in range(1, pseudo_label.GROUP_JOINTS + 1):
+            _check_geometry(s, k)
+    for k in range(65, 601):
+        for s in (1, 2, 5, 16, 32) + LARGE_MAPS:
+            _check_geometry(s, k)
+    assert all(pseudo_label.launch_geometry(s, 21)["staged"] for s in range(1, 129))
     assert not pseudo_label.launch_geometry(90, 64)["staged"]  # the second-pass path
+    large = {s: _check_geometry(s, 21) for s in (96, 128, 256)}
+    assert [(g["staged"], g["shared_bytes"]) for g in large.values()] == [
+        (True, 101376), (True, 180224), (False, 32768)]
+    big = _check_geometry(1000, 21)  # the table in tiles
+    assert big["tile"] == pseudo_label.TABLE_PIXELS < big["pixels"]
+    assert [_check_geometry(4, k)["groups"] for k in (64, 65, 128, 129, 600)] == [1, 2, 2, 3, 10]
+
+
+@pytest.mark.parametrize("size,joints,gf_kind,fused,normalize", [
+    (96, 21, "union_minus", True, True), (96, 21, "union_others", False, False),
+    (96, 21, "inverse", True, True), (12, 65, "union_minus", True, True),
+    (10, 65, "union_others", False, True)],
+    ids=["96 rd_64", "96 rd_plain", "96 inverse", "K=65 fused", "K=65 union_others"])
+def test_plain_labels_match_pallas_beyond_the_old_caps(size, joints, gf_kind, fused, normalize):
+    """``pseudo_labels_plain`` against the Pallas kernel (interpret mode) at
+    the sizes the CUDA kernel refused before (96² maps, 65 joints), at
+    ``tests/test_pallas_pseudo_label.py``'s tolerances: GT atol 1e-6, GF
+    atol 1e-6 (1e-5 with a fused target)."""
+    rng = np.random.default_rng(size + joints)
+    peaks = rng.integers(-3, size + 3, size=(2, joints, 2)).astype(np.int32)
+    target = rng.uniform(0, 1, (2, size, size, joints)).astype(np.float32) if fused else None
+    kw = dict(out_size=size, reach=6, gf_kind=gf_kind, normalize=normalize)
+    gt, gf = pseudo_label.pseudo_labels_plain(
+        torch.from_numpy(peaks), None if target is None else torch.from_numpy(target), **kw)
+    gt_ref, gf_ref = pseudo_labels_pallas(jnp.asarray(peaks),
+                                          None if target is None else jnp.asarray(target),
+                                          interpret=True, **kw)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gt_ref), atol=1e-6)
+    np.testing.assert_allclose(gf.numpy(), np.asarray(gf_ref), atol=1e-5 if fused else 1e-6)
+    assert (gt.numpy() > 0).any() and (gf.numpy() > 0).any()
+
+
+@pytest.mark.parametrize("mode", ["min", "max"])
+def test_rd_losses_at_heatmap_96_match_jax(mode):
+    """The two builds a run at ``--heatmap-size 96`` sends to the label
+    kernel, ``rd_64`` (union_minus, fused, normalized) and ``rd_plain``
+    (union_others), on the CPU against ``dahpe_tpu.train.disparity`` at the
+    DA parity tolerance of ``tests/test_torch_port_train.py``
+    (``test_rd_losses_match_jax``, rtol 1e-6)."""
+    rng = np.random.default_rng(96)
+    joints = 21
+    y = rng.standard_normal((2, 96, 96, joints)).astype(np.float32)
+    adv = rng.standard_normal((2, 96, 96, joints)).astype(np.float32)
+    fused = rng.uniform(0, 1, (2, 96, 96, joints)).astype(np.float32) if mode == "max" else None
+    w = (rng.uniform(size=(2, joints)) > 0.2).astype(np.float32)
+    t, j = torch.from_numpy, jnp.asarray
+    cases = [
+        (disparity.rd_64(t(y), t(adv), None if fused is None else t(fused), t(w), mode),
+         jdisparity.rd_64(j(y), j(adv), None if fused is None else j(fused), j(w), mode)),
+        (disparity.rd_plain(t(y), t(adv), t(w), mode),
+         jdisparity.rd_plain(j(y), j(adv), j(w), mode)),
+    ]
+    for got, ref in cases:
+        np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
