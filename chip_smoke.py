@@ -52,7 +52,19 @@ line, fail the run by raising:
    2N against a straight 2N run (cuDNN deterministic); ``cli.test`` on
    ``best``; short runs in the host-fed ``--device-aug`` and PIL modes; the
    kernel launches the iteration counts imply; and the save, restore and
-   drain-stall times of the full training state.
+   drain-stall times of the full training state;
+7. the serving deployment path: phase 3's model exported with
+   ``torch.export`` as a batch-polymorphic uint8-ingest float artifact and
+   as an int8 artifact (calibrated on seeded frames, bfloat16 glue), each
+   served by ``cli.serve``'s ``create_server`` on the loopback with
+   ``--batch-window 2`` (one CUDA graph per padded batch) and asked for 1, 8
+   and 32 frames through ``PoseClient`` and by 16 concurrent single-frame
+   clients; checked: float coordinates against phase 3's predict, graph
+   replay against eager execution, ``torch._int_mm`` against a float64
+   convolution at every conv of ResNet-101, int8 heatmaps within 0.1·std
+   of the float ones, fewer dispatches than requests under the burst; then
+   ``cli.export`` of phase 6's ``best`` and ``cli.test --artifact``, whose
+   PCK must equal ``cli.test --checkpoint``'s exactly.
 
 Then one JSON line of kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1407,7 +1419,10 @@ def phase_cli(torch, kernels, smi, bare_ms, checkpoint):
     if launches != expected:
         raise AssertionError(f"cli: launches {launches}, expected {expected}")
     # the runs' checkpoints and caches take several GB of disk; the logs,
-    # metrics and the trace stay under build/chip_smoke_cli
+    # metrics and the trace stay under build/chip_smoke_cli, and the straight
+    # run's best checkpoint for phase 7's artifact
+    kept_best = os.path.join(root, "phase7_best")
+    shutil.move(os.path.join(straight, "best"), kept_best)
     for name in os.listdir(root):
         shutil.rmtree(os.path.join(root, name, "checkpoints"), ignore_errors=True)
     for name in ("cache", "phase6_state"):
@@ -1426,6 +1441,251 @@ def phase_cli(torch, kernels, smi, bare_ms, checkpoint):
         "cli_test_best": {"target": scores["target"]["all"], "logged": best},
         "host_fed_modes": host_fed,
         "checkpoint": checkpoint, "launches": launches,
+    })
+    return launches, {"best": kept_best, "scores": scores, "argv": argv}
+
+
+def _timed_requests(client, frames_by_n):
+    """Sequential requests through ``client``: one warm-up (the bucket's
+    graph capture) then the timed ones; ms per request (mean, p50), img/s."""
+    out = {}
+    for n, (frames, reps) in frames_by_n.items():
+        client.predict(frames)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            coords, maxvals = client.predict(frames)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if coords.shape != (n, JOINTS, 2) or not np.isfinite(coords).all():
+            raise AssertionError(f"serving artifact: {n} frames gave {coords.shape}")
+        ms = float(np.mean(times))
+        out[n] = {"ms_per_request": ms, "p50_ms": float(np.median(times)),
+                  "img_per_s": n * 1e3 / ms, "requests": reps}
+    return out
+
+
+def _concurrent_singles(port, frames, n=16):
+    """``n`` single-frame requests at once, each from its own client: the
+    server's request and batch counts over the burst."""
+    import threading
+
+    from dahpe_tpu_torch.client import PoseClient
+
+    with PoseClient("127.0.0.1", port, timeout=120) as c:
+        before = c.health()
+    errors, barrier = [], threading.Barrier(n)
+
+    def one(i):
+        try:
+            with PoseClient("127.0.0.1", port, timeout=120) as c:
+                barrier.wait(timeout=60)
+                coords, _ = c.predict(frames[i:i + 1])
+                if coords.shape != (1, JOINTS, 2):
+                    raise AssertionError(coords.shape)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    seconds = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"concurrent requests failed: {errors}")
+    with PoseClient("127.0.0.1", port, timeout=120) as c:
+        after = c.health()
+    requests = after["requests"] - before["requests"]
+    batches = after["batches"] - before["batches"]
+    return {"requests": requests, "batches": batches, "coalescing_ratio": requests / batches,
+            "burst_s": seconds, "graphs": after["graphs"]}
+
+
+def phase_artifacts(torch, models, kernels, smi, phase3, cli_best):
+    """Phase 7: the serving deployment path on the card (module docstring)."""
+    import threading
+
+    from dahpe_tpu_torch import evaluate, quant, serving
+    from dahpe_tpu_torch.cli import export as export_cli
+    from dahpe_tpu_torch.cli import serve
+    from dahpe_tpu_torch.cli import test as test_cli
+    from dahpe_tpu_torch.cli.args import build_parser
+    from dahpe_tpu_torch.client import PoseClient
+    from dahpe_tpu_torch.data.device_aug import IMAGENET_MEAN, IMAGENET_STD
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_serving")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.reset_peak_memory_stats()
+    device = CLI_DEVICE
+    model = build_model(torch, models).to(device)  # phase 3's weights (same seed)
+    rng = np.random.default_rng(70)
+    mean = torch.as_tensor(IMAGENET_MEAN, device=device)
+    std = torch.as_tensor(IMAGENET_STD, device=device)
+
+    def normalized(frames):
+        return (torch.from_numpy(frames).to(device).float() / 255.0 - mean) / std
+
+    # export: float (uint8 ingest, batch-polymorphic) and int8 (calibrated on
+    # seeded frames, bfloat16 glue), each beside its npz weights
+    paths = {"float": os.path.join(root, "float.pt2"), "int8": os.path.join(root, "int8.pt2")}
+    seconds, sizes = {}, {}
+    t0 = time.perf_counter()
+    serving.save_predict(paths["float"], model, image_size=IMAGE, heatmap_size=HEATMAP,
+                         uint8_input=True, device=device)
+    serving.save_variables_npz(paths["float"] + ".weights.npz", model)
+    seconds["float_export"] = time.perf_counter() - t0
+    calib = normalized(rng.integers(0, 256, (16, IMAGE, IMAGE, 3), dtype=np.uint8))
+    t0 = time.perf_counter()
+    qtree = quant.quantize_model(model, calib)
+    torch.cuda.synchronize()
+    seconds["int8_calibrate_quantize"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(paths["int8"], "wb") as f:
+        f.write(serving.export_predict_int8(qtree, image_size=IMAGE, heatmap_size=HEATMAP,
+                                           uint8_input=True, glue="bfloat16", device=device))
+    serving.save_quantized_npz(paths["int8"] + ".weights.npz", qtree)
+    seconds["int8_export"] = time.perf_counter() - t0
+    for kind, path in paths.items():
+        sizes[kind] = {"artifact_bytes": os.path.getsize(path),
+                       "npz_bytes": os.path.getsize(path + ".weights.npz")}
+    del calib
+
+    # _int_mm against its plain version at every conv of ResNet-101, on the
+    # int8 activations one frame's forward gives each conv
+    tree = quant.to_torch(qtree, device)
+    frames8 = rng.integers(0, 256, (8, IMAGE, IMAGE, 3), dtype=np.uint8)
+    x8 = normalized(frames8)
+    calls, real_conv = [], quant.int8_conv
+
+    def recording(xq, wq, **kw):
+        calls.append((xq, wq, kw))
+        return real_conv(xq, wq, **kw)
+
+    quant.int8_conv = recording
+    try:
+        quant.apply_int8(tree, x8[:1])
+    finally:
+        quant.int8_conv = real_conv
+    shapes = set()
+    for xq, wq, kw in calls:
+        got, want = real_conv(xq, wq, **kw), quant.int8_conv_plain(xq, wq, **kw)
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8 conv {tuple(wq.shape)} {kw}: _int_mm differs from "
+                                 "the float64 convolution")
+        shapes.add((tuple(xq.shape), tuple(wq.shape), kw["stride"], str(kw["padding"])))
+    del calls
+
+    # int8 heatmaps against the float ones (tests/test_quant.py:106's bound)
+    with torch.no_grad():
+        y_f = model.main_head(model.features(x8))
+    y_q = quant.apply_int8(tree, x8, glue=torch.bfloat16)
+    int8_mae, float_std = float((y_q - y_f).abs().mean()), float(y_f.std())
+    if not int8_mae < 0.1 * float_std:
+        raise AssertionError(f"int8 heatmaps: mean abs error {int8_mae} >= 0.1 * {float_std}")
+
+    # prominent joints of the float heatmaps: where a near-tie cannot flip
+    flat = y_f.reshape(8, -1, JOINTS)
+    top2 = flat.topk(2, dim=1).values
+    prominent = ((top2[:, 0] - top2[:, 1]) > 1e-4).cpu()
+    live_coords, live_maxvals = evaluate.make_predict_fn(
+        model, image_size=IMAGE, heatmap_size=HEATMAP, uint8_input=True, device=device)(frames8)
+    live_maxvals = live_maxvals.cpu().numpy()[..., 0]
+    del model, tree, y_f, y_q, x8
+
+    requests = {1: (rng.integers(0, 256, (1, IMAGE, IMAGE, 3), dtype=np.uint8), 30),
+                8: (frames8, 20),
+                32: (rng.integers(0, 256, (32, IMAGE, IMAGE, 3), dtype=np.uint8), 10)}
+    singles = rng.integers(0, 256, (16, IMAGE, IMAGE, 3), dtype=np.uint8)
+    served = {}
+    for kind, path in paths.items():
+        t0 = time.perf_counter()
+        server = serve.create_server(serve.build_serve_parser().parse_args(
+            [path, "--host", "127.0.0.1", "--port", "0", "--batch-window", "2",
+             "--device", device]))
+        load_s = time.perf_counter() - t0
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            port = server.server_address[1]
+            with PoseClient("127.0.0.1", port, timeout=120) as client:
+                timing = _timed_requests(client, requests)
+                coords_http, maxvals_http = client.predict(frames8)
+            burst = _concurrent_singles(port, singles)
+            if not burst["batches"] < burst["requests"]:
+                raise AssertionError(f"{kind}: no coalescing under concurrent load {burst}")
+            # graph replay against eager execution of the same artifact
+            servable = server.servable
+            for n, (frames, _) in requests.items():
+                coords_g, maxvals_g = servable.run_arrays(frames)
+                coords_e, maxvals_e = servable.predict(servable.weights,
+                                                       torch.from_numpy(frames).to(device))
+                if not (np.array_equal(coords_g, coords_e.cpu().numpy())
+                        and np.array_equal(maxvals_g, maxvals_e.cpu().numpy()[..., 0])):
+                    raise AssertionError(f"{kind}: graph replay at {n} frames differs from eager")
+            # the layers under the HTTP request: one dispatch (pad, copy in,
+            # replay, copy out), the same call run eagerly, and the replay's
+            # device time alone
+            breakdown = {}
+            for n, (frames, reps) in requests.items():
+                x = torch.from_numpy(frames).to(device)
+                graph = servable._graphs.get(n)
+                breakdown[n] = {
+                    "dispatch_ms": host_ms(torch, lambda: servable.run_arrays(frames), reps),
+                    "eager_ms": host_ms(torch, lambda: [t.cpu() for t in servable.predict(
+                        servable.weights, x)], reps),
+                    "replay_device_ms": (cuda_ms(torch, graph.graph.replay, iters=reps, warmup=2)
+                                         if graph is not None else "not measured"),
+                }
+            graphs = servable.info()["graphs"]
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        if kind == "float" and not torch.equal(torch.from_numpy(coords_http)[prominent],
+                                               live_coords.cpu()[prominent]):
+            raise AssertionError("float artifact: coordinates differ from phase 3's predict")
+        served[kind] = {"requests": timing, "layers": breakdown, "concurrent_16_singles": burst,
+                        "graphs_captured": graphs, "server_start_s": load_s, **sizes[kind]}
+        if kind == "float":
+            served[kind]["maxvals_vs_phase3_max_abs"] = float(
+                np.abs(maxvals_http - live_maxvals).max())
+        del server
+        torch.cuda.empty_cache()
+
+    # cli.export of phase 6's best checkpoint (float32 input), then cli.test
+    # --artifact on the same splits: the checkpoint's PCK exactly
+    artifact = os.path.join(root, "best.pt2")
+    t0 = time.perf_counter()
+    export_cli.main(export_cli.build_export_parser().parse_args(
+        [cli_best["best"], "-o", artifact, "-a", CLI_ARCH, "--device", device,
+         "--image-size", str(IMAGE), "--heatmap-size", str(HEATMAP)]))
+    seconds["cli_export_best"] = time.perf_counter() - t0
+    kernels.reset()  # main path 4: the artifact's evaluation on the card
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # as phase 6 scored the checkpoint
+    try:
+        scores = test_cli.main(build_parser("test").parse_args(
+            cli_best["argv"]("test_artifact", "--artifact", artifact)))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    launches = kernels.read()
+    if scores != cli_best["scores"]:
+        raise AssertionError(f"cli.test --artifact: PCK {scores} != --checkpoint "
+                             f"{cli_best['scores']}")
+    shutil.rmtree(cli_best["best"], ignore_errors=True)
+    for name in os.listdir(root):  # the artifacts and weights: ~1 GB
+        os.remove(os.path.join(root, name))
+    line("phase 7 serving artifacts resnet101 256²/64²/21", {
+        "card": smi, "seconds": seconds, "int8_conv_shapes_checked": len(shapes),
+        "int8_vs_float": {"mean_abs_err": int8_mae, "float_std": float_std, "bound": 0.1},
+        "prominent_joints": int(prominent.sum()), "served": served,
+        "in_process_phase3": phase3, "batch_window_ms": 2,
+        "cli_test_artifact": {"target": scores["target"]["all"], "source": scores["source"],
+                              "equals_checkpoint": True},
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
     })
     return launches
 
@@ -1449,7 +1709,7 @@ def main() -> int:
     kernels = Kernels(gaussian, pseudo_label, shear)
 
     kernels.reset()  # main path 1: serving, then validation
-    phase_serving(torch, evaluate, models, model, smi)
+    phase3 = phase_serving(torch, evaluate, models, model, smi)
     phase_validation(torch, evaluate, gaussian, data, model)
     launches = kernels.read()
     if launches["render_gaussian"] == 0:
@@ -1472,10 +1732,16 @@ def main() -> int:
     for name, count in phase_training_96(torch, models, train, data, kernels, smi).items():
         launches[name] += count
     torch.cuda.empty_cache()
-    cli_launches = phase_cli(torch, kernels, smi, bare_ms, checkpoint)
+    cli_launches, cli_best = phase_cli(torch, kernels, smi, bare_ms, checkpoint)
     for name, count in cli_launches.items():
         if name in PATH_KERNELS and count == 0:
             raise AssertionError(f"{name} kernel never launched on the CLI path")
+        launches[name] += count
+    torch.cuda.empty_cache()
+    artifact_launches = phase_artifacts(torch, models, kernels, smi, phase3, cli_best)
+    if artifact_launches["render_gaussian"] == 0:
+        raise AssertionError("render_gaussian kernel never launched on the artifact's eval path")
+    for name, count in artifact_launches.items():
         launches[name] += count
 
     sources = {

@@ -6,27 +6,31 @@ to find, and keeps its public layouts: images ``(B, H, W, 3)``, heatmaps
 the JAX package is its reference and is never imported here.
 
 Subpackages are not imported eagerly: the CUDA kernels build at their first
-launch, never at import.
+launch, never at import. The package itself imports torch only when a
+function needs it, so the serving client (:mod:`dahpe_tpu_torch.client`)
+runs where torch is not installed.
 """
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def default_device() -> torch.device:
+def default_device():
     """The device entry points run on unless the caller names another.
 
     The port targets the card, so this is ``cuda`` even where no card is
     present: a CPU run must ask for ``device="cpu"`` explicitly.
     """
+    import torch
+
     return torch.device("cuda")
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None):
     """``device`` as a ``torch.device``, or :func:`default_device` if None."""
+    import torch
+
     return default_device() if device is None else torch.device(device)
 
 
@@ -36,5 +40,7 @@ def set_float32_policy() -> None:
     TF32 keeps about three decimal digits, and the port is held to the JAX
     reference at float32 tolerances.
     """
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -124,6 +124,7 @@ def build_parser(phase: str = "train") -> argparse.ArgumentParser:
                             help="checkpoint to evaluate (checkpoint dir of "
                                  "this package or of dahpe_tpu, or a .pth)")
         parser.add_argument("--artifact", type=str, default=None,
-                            help="evaluate an exported serving artifact; "
-                                 "not ported yet")
+                            help="evaluate an exported serving artifact "
+                                 "(cli.export, float or int8, float32 input) "
+                                 "instead of a checkpoint")
     return parser

@@ -24,8 +24,6 @@ _UNPORTED = {
     "bf16": "--bf16 (bfloat16 compute) is not ported yet (ROADMAP.md queue 1 item 9)",
     "debug": "--debug (cv2 skeleton visualisations) is not ported yet "
              "(ROADMAP.md queue 1 item 9)",
-    "artifact": "--artifact (exported serving artifacts) is not ported yet "
-                "(ROADMAP.md queue 1 item 12)",
 }
 
 

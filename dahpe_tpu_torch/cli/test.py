@@ -6,8 +6,10 @@ loads a checkpoint (a packed directory of this package or of the JAX
 package, or a reference torch ``.pth`` such as the published
 ``STB_best_750.pth``) and reports per-group PCK@0.05 on the source and
 target test splits, from host loaders or, with ``--device-store``,
-device-resident ones. ``--artifact`` (an exported serving artifact) is not
-ported yet.
+device-resident ones. ``--artifact model.pt2`` evaluates an exported serving
+artifact instead (``cli.export``, float or int8, float32 input): the same
+loaders and PCK grouping, scoring the artifact's own decoded coordinates, so
+a float artifact reproduces its checkpoint's PCK exactly.
 """
 
 from __future__ import annotations
@@ -22,19 +24,19 @@ from dahpe_tpu_torch.cli.common import (
     build_val_loader,
     refuse_unported,
 )
-from dahpe_tpu_torch.evaluate import make_eval_step, validate
+from dahpe_tpu_torch.evaluate import make_artifact_eval_step, make_eval_step, validate
 from dahpe_tpu_torch.utils import checkpoint as ckpt
 from dahpe_tpu_torch.utils.logging import RunLogger
 
 
 def main(args) -> dict:
-    """Evaluate ``args.checkpoint``; returns ``{"source": pck, "target":
-    per-group pck}``."""
+    """Evaluate ``args.checkpoint`` or ``args.artifact``; returns
+    ``{"source": pck, "target": per-group pck}``."""
     # argument contract first: failing after the dataset build and upload
     # would waste minutes on a usage error
     refuse_unported(args)
-    if args.checkpoint is None:
-        raise SystemExit("pass --checkpoint")
+    if (args.checkpoint is None) == (args.artifact is None):
+        raise SystemExit("pass exactly one of --checkpoint / --artifact")
     logger = RunLogger(args.log, "test")
     try:
         print(args)
@@ -47,13 +49,27 @@ def main(args) -> dict:
             val_source_loader = build_val_loader(args, val_source)
             val_target_loader = build_val_loader(args, val_target)
 
-        model = build_model(args, multi_head=True)
-        if args.checkpoint.endswith(".pth"):
-            ckpt.load_reference_pth(args.checkpoint, model, strict=True)
+        if args.artifact:
+            # deployment acceptance: drive the exported program (float or
+            # int8) and score its own decoded coordinates
+            from dahpe_tpu_torch import serving
+            from dahpe_tpu_torch.quant import to_torch
+
+            model = None
+            predict = serving.load_predict_file(args.artifact, device=args.device)
+            weights = to_torch(serving.load_artifact_weights(args.artifact + ".weights.npz"),
+                               args.device)
+            print(f"loaded artifact {args.artifact}")
+            eval_step = make_artifact_eval_step(predict, weights, image_size=args.image_size,
+                                                heatmap_size=args.heatmap_size)
         else:
-            model.load_state_dict(ckpt.load_model_variables(args.checkpoint))
-        print(f"loaded {args.checkpoint}")
-        eval_step = make_eval_step(model, device=args.device)
+            model = build_model(args, multi_head=True)
+            if args.checkpoint.endswith(".pth"):
+                ckpt.load_reference_pth(args.checkpoint, model, strict=True)
+            else:
+                model.load_state_dict(ckpt.load_model_variables(args.checkpoint))
+            print(f"loaded {args.checkpoint}")
+            eval_step = make_eval_step(model, device=args.device)
         kw = dict(image_size=args.image_size, heatmap_size=args.heatmap_size,
                   print_freq=args.print_freq, eval_step=eval_step, device=args.device)
         src_acc = validate(val_source_loader, model, val_source, **kw)
@@ -61,7 +77,7 @@ def main(args) -> dict:
         print(f"Source: {src_acc['all']:4.3f} Target: {tgt_acc['all']:4.3f}")
         for name, acc in tgt_acc.items():
             print(f"{name}: {acc:4.3f}")
-        logger.log_metrics(kind="eval", checkpoint=args.checkpoint,
+        logger.log_metrics(kind="eval", checkpoint=args.checkpoint or args.artifact,
                            val_source=src_acc["all"], val_target=tgt_acc)
         return {"source": src_acc["all"], "target": tgt_acc}
     finally:

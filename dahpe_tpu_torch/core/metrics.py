@@ -51,13 +51,23 @@ def pck_accuracy(
     ``acc`` is -1 for joints with no valid sample and ``avg_acc`` averages
     only over valid joints.
     """
-    b, h, w, _ = output.shape
     pred, _ = get_max_preds(output)
+    acc, avg, cnt = pck_of_preds(pred, target, thr=thr)
+    return acc, avg, cnt, pred
+
+
+def pck_of_preds(
+    pred: torch.Tensor, target: torch.Tensor, *, thr: float = 0.5
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`pck_accuracy` of decoded predictions ``pred (B, K, 2)`` in
+    heatmap pixels against ``(B, H, W, K)`` target heatmaps: ``(acc (K,),
+    avg_acc (), cnt ())``."""
+    b, h, w, _ = target.shape
     gt, _ = get_max_preds(target)
     # filled on the device: a tensor built from a host list is a copy that
     # waits for the stream
-    norm = torch.stack([torch.full((b,), h / 10.0, dtype=output.dtype, device=output.device),
-                        torch.full((b,), w / 10.0, dtype=output.dtype, device=output.device)],
+    norm = torch.stack([torch.full((b,), h / 10.0, dtype=pred.dtype, device=pred.device),
+                        torch.full((b,), w / 10.0, dtype=pred.dtype, device=pred.device)],
                        dim=-1)
     dists = calc_dists(pred, gt, norm)
     acc = dist_acc(dists, thr)
@@ -67,7 +77,7 @@ def pck_accuracy(
     avg = torch.where(
         cnt > 0, total / cnt.clamp(min=1).to(acc.dtype), torch.zeros_like(total)
     )
-    return acc, avg, cnt, pred
+    return acc, avg, cnt
 
 
 def group_accuracy(

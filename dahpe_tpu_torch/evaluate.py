@@ -1,11 +1,12 @@
 """Serving entry and validation loop.
 
 Port of ``dahpe_tpu/evaluate.py``: ``make_predict_fn`` (images → keypoint
-coordinates), ``make_eval_step`` (forward + KL loss + PCK) and ``validate``
-(per-group PCK over a device-resident eval split or a host loader). Eval
-and serving run the feature extractor and the main head only: under
-``jax.jit`` the adversarial heads were dead code, and eager PyTorch would
-otherwise run them.
+coordinates), ``make_eval_step`` (forward + KL loss + PCK),
+``make_artifact_eval_step`` (PCK of an exported serving artifact) and
+``validate`` (per-group PCK over a device-resident eval split or a host
+loader). Eval and serving run the feature extractor and the main head only:
+under ``jax.jit`` the adversarial heads were dead code, and eager PyTorch
+would otherwise run them.
 
 Both factories take a ``device`` (default ``cuda``, see
 :func:`dahpe_tpu_torch.default_device`), move the model there, and set the
@@ -21,7 +22,7 @@ import torch
 from dahpe_tpu_torch import resolve_device, set_float32_policy
 from dahpe_tpu_torch.core.decode import get_max_preds
 from dahpe_tpu_torch.core.losses import joints_kl_loss
-from dahpe_tpu_torch.core.metrics import pck_accuracy
+from dahpe_tpu_torch.core.metrics import pck_accuracy, pck_of_preds
 from dahpe_tpu_torch.data.device_aug import IMAGENET_MEAN, IMAGENET_STD
 from dahpe_tpu_torch.data.pipeline import finalize_batch
 from dahpe_tpu_torch.utils.meters import AverageMeter, AverageMeterDict
@@ -91,20 +92,73 @@ def make_predict_fn(model, *, image_size: int = 256, heatmap_size: int = 64,
     device.
     """
     device = _place(model, device)
-    scale = image_size / heatmap_size
-    mean = torch.as_tensor(IMAGENET_MEAN, device=device)
-    std = torch.as_tensor(IMAGENET_STD, device=device)
+    program = PredictProgram(lambda _, x: _eval_forward(model, x), image_size=image_size,
+                             heatmap_size=heatmap_size, uint8_input=uint8_input,
+                             device=device)
 
     @torch.inference_mode()
     def predict(images):
-        images = torch.as_tensor(images, device=device)
-        if uint8_input:
-            images = images.to(torch.float32) / 255.0
-            images = (images - mean) / std
-        preds, maxvals = get_max_preds(_eval_forward(model, images))
-        return preds * scale, maxvals
+        return program(None, torch.as_tensor(images, device=device))
 
     return predict
+
+
+class PredictProgram(torch.nn.Module):
+    """``forward(weights, images) -> (coords (B, K, 2), maxvals (B, K, 1))``
+    around ``heatmaps(weights, x)``: the optional uint8 ingest (ImageNet
+    normalization on ``device``, default ``cuda``), then the argmax decode
+    scaled to image pixels. It holds no weights, only the normalization
+    constants, so an exported copy takes its weights at run time
+    (``serving.export_predict``)."""
+
+    def __init__(self, heatmaps, *, image_size: int = 256, heatmap_size: int = 64,
+                 uint8_input: bool = False, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.heatmaps = heatmaps
+        self.scale = image_size / heatmap_size
+        self.uint8_input = uint8_input
+        self.register_buffer("mean", torch.as_tensor(IMAGENET_MEAN, device=device),
+                             persistent=False)
+        self.register_buffer("std", torch.as_tensor(IMAGENET_STD, device=device),
+                             persistent=False)
+
+    def forward(self, weights, images):
+        if self.uint8_input:
+            images = images.to(torch.float32) / 255.0
+            images = (images - self.mean) / self.std
+        preds, maxvals = get_max_preds(self.heatmaps(weights, images))
+        return preds * self.scale, maxvals
+
+
+def make_artifact_eval_step(predict, weights, *, image_size: int = 256,
+                            heatmap_size: int = 64):
+    """Eval step driving an exported serving artifact instead of a live model,
+    the deployment acceptance path of ``cli.test --artifact``.
+
+    ``predict`` is a loaded artifact (``serving.load_predict_file``, float or
+    int8) taking float32 frames, ``weights`` its tree on the batch's device.
+    PCK comes from the artifact's own coordinates divided by the stride, the
+    exact inverse of its decode scaling, so a float artifact reproduces the
+    checkpoint's PCK exactly and an int8 artifact's gap is its quantization
+    cost. The artifact returns no heatmaps, so the loss is NaN."""
+    scale = image_size / heatmap_size
+
+    @torch.inference_mode()
+    def eval_step(batch):
+        coords, _ = predict(weights, batch["image"].to(torch.float32))
+        pred = coords.to(torch.float32) / scale  # heatmap pixels
+        acc, avg, cnt = pck_of_preds(pred, batch["target"])
+        b = batch["target"].shape[0]
+        return {
+            "loss_per_sample": torch.full((b,), float("nan"), device=pred.device),
+            "acc_per_joint": acc,
+            "avg_acc": avg,
+            "cnt": cnt,
+            "pred": pred,
+        }
+
+    return eval_step
 
 
 def validate(

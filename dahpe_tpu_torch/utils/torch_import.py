@@ -15,7 +15,8 @@ The input is a ``{"params", "batch_stats"}`` tree of arrays (numpy, or
 anything ``numpy.asarray`` accepts); nothing of JAX is imported here.
 :func:`da_state_from_jax` carries a whole DA training state the same way:
 weights, BN statistics, the per-partition momentum, the step and the EMA, so
-a port run continues a JAX run mid-training.
+a port run continues a JAX run mid-training. :func:`quantized_from_jax`
+carries the JAX package's int8 deployment tree (``dahpe_tpu/quant.py``).
 """
 
 from __future__ import annotations
@@ -155,3 +156,28 @@ def da_state_from_jax(state, model: torch.nn.Module, *, device=None, momentum: f
             for key, value in out.ema.items():
                 value.copy_(ema[key])
     return out
+
+
+def quantized_from_jax(quantized) -> dict:
+    """The JAX package's int8 deployment tree (``quant.quantize_serving``:
+    per conv an HWIO ``wq`` and ``sw``, ``b``, ``sx``, in nested ``layers``/
+    ``up``/``head`` lists) as the port's numpy tree (``dahpe_tpu_torch/
+    quant.py``): each ``wq`` transposed to ``(O, I, kh, kw)``. A deconv's
+    HWIO kernel is already that of its lhs-dilated convolution, so it takes
+    the same transpose."""
+
+    def entry(e):
+        return {"wq": np.ascontiguousarray(np.asarray(e["wq"], np.int8).transpose(3, 2, 0, 1)),
+                "sw": np.asarray(e["sw"], np.float32), "b": np.asarray(e["b"], np.float32),
+                "sx": np.float32(e["sx"])}
+
+    def walk(node):
+        if isinstance(node, Mapping) and "wq" in node:
+            return entry(node)
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        raise ValueError(f"unexpected leaf {type(node).__name__} in a quantized tree")
+
+    return walk(quantized)

@@ -240,9 +240,13 @@ def test_unported_flags_are_refused(roots, tmp_path, flags, item):
 
 
 def test_test_cli_refuses_artifacts_and_needs_a_checkpoint(roots, tmp_path):
-    with pytest.raises(SystemExit, match="item 12"):
-        test_cli.main(build_parser("test").parse_args(_argv(roots, tmp_path, "--artifact", "x")))
-    with pytest.raises(SystemExit, match="--checkpoint"):
+    """An artifact together with a checkpoint is refused, and so is neither:
+    exactly one is evaluated (``tests/test_torch_port_serving.py`` runs
+    ``--artifact`` alone)."""
+    with pytest.raises(SystemExit, match="exactly one"):
+        test_cli.main(build_parser("test").parse_args(
+            _argv(roots, tmp_path, "--artifact", "x", "--checkpoint", "y")))
+    with pytest.raises(SystemExit, match="--checkpoint / --artifact"):
         test_cli.main(build_parser("test").parse_args(_argv(roots, tmp_path)))
 
 
