@@ -64,7 +64,20 @@ line, fail the run by raising:
    convolution at every conv of ResNet-101, int8 heatmaps within 0.1·std
    of the float ones, fewer dispatches than requests under the burst; then
    ``cli.export`` of phase 6's ``best`` and ``cli.test --artifact``, whose
-   PCK must equal ``cli.test --checkpoint``'s exactly.
+   PCK must equal ``cli.test --checkpoint``'s exactly;
+8. ``steps_per_call`` as CUDA-graph replays and the adaptation experiment:
+   (a) the DA iteration at phase 5's configuration and the pretrain
+   iteration, each from one snapshot run as 4 eager single calls and as one
+   graphed 4-step call (cuDNN deterministic for the check): the generators
+   ``torch.equal`` and every weight, BN statistic, momentum and EMA entry
+   within the DA parity tolerance (rtol 5e-3), the three path kernels
+   counted per replay by the profiler against one eager iteration, and
+   ms/iter at K = 1, 4 and 8, idle shares and peak memory; (b) the training
+   CLI at phase 6's configuration with ``--steps-per-call 4``:
+   ``--max-steps 4`` then ``--resume`` to 8 against a straight run; (c) the
+   adaptation experiment at its acceptance configuration (resnet18 at
+   128²/32², shift 0.3, content 0.3, style 1.0, EMA 0.99, confidence gate
+   0.5, seed 0) cut to 200 + 200 iterations, every number finite.
 
 Then one JSON line of kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -97,6 +110,8 @@ LIBRARIES = {"render_gaussian": ["render_gaussian.cu"], "pseudo_label": ["pseudo
 NO_LAUNCHES = {"render_gaussian": 0, "pseudo_labels": 0, "rotate3_fused": 0,
                "rotate3_fused_f32": 0, "rotate3": 0, "shear": 0}
 PATH_KERNELS = ("render_gaussian", "pseudo_labels", "rotate3_fused")
+# the path kernels' device names, as a profile lists them
+PATH_KERNEL_NAMES = ("render_gaussian_kernel", "pseudo_labels_kernel", "rotate3_fused_kernel")
 
 
 _START = time.perf_counter()
@@ -180,9 +195,13 @@ def device_profile(torch, fn) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     ours = {k: sum(us for name, us in by_name.items() if k in name) / 1e3
             for k in PORT_KERNELS}
+    counts = {k: sum(1 for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and k in e.name)
+              for k in PORT_KERNELS}
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": 1 - busy / wall_us, "kernels": kernels,
-            "top_ms": {name: us / 1e3 for name, us in top}, "port_kernels_ms": ours}
+            "top_ms": {name: us / 1e3 for name, us in top}, "port_kernels_ms": ours,
+            "port_kernel_launches": counts}
 
 
 def phase_device(torch, build):
@@ -1418,15 +1437,17 @@ def phase_cli(torch, kernels, smi, bare_ms, checkpoint):
                     pseudo_labels=3 * da_iters, rotate3_fused=2 * rotated_iters + pre_iters)
     if launches != expected:
         raise AssertionError(f"cli: launches {launches}, expected {expected}")
-    # the runs' checkpoints and caches take several GB of disk; the logs,
-    # metrics and the trace stay under build/chip_smoke_cli, and the straight
-    # run's best checkpoint for phase 7's artifact
+    # the runs' checkpoints take several GB of disk; the logs, metrics and
+    # the trace stay under build/chip_smoke_cli, the straight run's best
+    # checkpoint for phase 7's artifact, and the pretrain checkpoint and the
+    # decoded cache for phase 8's chunked runs (which delete them)
     kept_best = os.path.join(root, "phase7_best")
     shutil.move(os.path.join(straight, "best"), kept_best)
+    kept_warm = os.path.join(root, "phase8_pretrain")
+    shutil.move(warm, kept_warm)
     for name in os.listdir(root):
         shutil.rmtree(os.path.join(root, name, "checkpoints"), ignore_errors=True)
-    for name in ("cache", "phase6_state"):
-        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    shutil.rmtree(os.path.join(root, "phase6_state"), ignore_errors=True)
     line("phase 6 training CLI resnet101 256²/64², batch 32, --device-store --with-ema", {
         "card": smi, "data_cut": {"train_frames": CLI_TRAIN, "val_frames": CLI_VAL,
                                   "default": [2048, 256]},
@@ -1442,7 +1463,8 @@ def phase_cli(torch, kernels, smi, bare_ms, checkpoint):
         "host_fed_modes": host_fed,
         "checkpoint": checkpoint, "launches": launches,
     })
-    return launches, {"best": kept_best, "scores": scores, "argv": argv}
+    return launches, {"best": kept_best, "scores": scores, "argv": argv, "pretrain": kept_warm,
+                      "root": root, "val_batches": val_batches}
 
 
 def _timed_requests(client, frames_by_n):
@@ -1690,6 +1712,274 @@ def phase_artifacts(torch, models, kernels, smi, phase3, cli_best):
     return launches
 
 
+GRAPH_K = 4  # --steps-per-call of phase 8
+ADAPT_ITERS = 200  # phase 8c: the acceptance run's 4000 + 3000 iterations cut to 200 + 200
+
+
+def live_tensors(state) -> list:
+    """Every tensor an iteration writes in place, in a fixed order: weights,
+    BN statistics and counters, momentum buffers and EMA entries."""
+    out = list(state.model.state_dict().values())
+    for opt in state.optimizers.values():
+        out += [opt.state[p]["momentum_buffer"] for g in opt.param_groups for p in g["params"]]
+    return out + (list(state.ema.values()) if getattr(state, "ema", None) else [])
+
+
+def take(state, gens):
+    """What an iteration changes, to be put back in place (a captured graph
+    goes on writing the tensors it recorded): tensors, step, generators."""
+    return ([t.detach().clone() for t in live_tensors(state)], state.step,
+            [g.get_state() for g in gens])
+
+
+def put(torch, state, gens, snap):
+    tensors, step, gen_states = snap
+    with torch.no_grad():
+        for t, v in zip(live_tensors(state), tensors):
+            t.copy_(v)
+    state.step = step
+    for g, st in zip(gens, gen_states):
+        g.set_state(st)
+
+
+def state_agreement(torch, got, want, rtol=5e-3, atol=5e-5) -> dict:
+    """Tensors of two snapshots: how many differ at all, the worst share of
+    the DA parity tolerance (``tests/test_da_parity.py:221-223``) any entry
+    uses (< 1 passes) and the worst absolute difference."""
+    unequal, share, worst = 0, 0.0, 0.0
+    for a, b in zip(got, want):
+        if torch.equal(a, b):
+            continue
+        unequal += 1
+        if a.is_floating_point():
+            d = (a.double() - b.double()).abs()
+            worst = max(worst, float(d.max()))
+            share = max(share, float((d / (atol + rtol * b.double().abs())).max()))
+        else:
+            share = float("inf")
+    return {"tensors": len(want), "unequal": unequal, "bit_equal": unequal == 0,
+            "worst_share_of_tolerance": share, "max_abs_diff": worst, "rtol": rtol, "atol": atol}
+
+
+def timed_calls(torch, call, calls: int, per_call: int, images: int) -> dict:
+    """ms per iteration over ``calls`` warm calls of ``per_call`` iterations,
+    by CUDA events and by the host clock (ending in a synchronize)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        call()
+    end.record()
+    end.synchronize()
+    iters = calls * per_call
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    return {"iterations": iters, "cuda_event_ms_per_iter": start.elapsed_time(end) / iters,
+            "host_ms_per_iter": host, "img_per_s": images * 1e3 / host}
+
+
+def graph_check(torch, make_call, state, gens, images: int) -> dict:
+    """Phase 8a for one kind of iteration. ``make_call(k)`` wraps a fresh
+    ``steps_per_call=k`` iteration into a no-argument call on ``state`` and
+    ``gens``. With cuDNN deterministic, from one snapshot: ``GRAPH_K`` eager
+    single calls twice (the noise floor) and the graphed chunk (its first
+    call, the eager warm-up, put back first). Then, at cuDNN's defaults, as
+    phase 5 runs: kernels per replay by name, times at K = 1, ``GRAPH_K``
+    and 8, idle shares and peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        single = make_call(1)
+        for _ in range(2):  # cuDNN's algorithms; momentum buffers exist after
+            single()
+        snap = take(state, gens)
+        eager = []
+        for _ in range(2):
+            put(torch, state, gens, snap)
+            for _ in range(GRAPH_K):
+                single()
+            eager.append(take(state, gens))
+        chunked = make_call(GRAPH_K)
+        put(torch, state, gens, snap)
+        chunked()  # the first call: GRAPH_K eager iterations
+        put(torch, state, gens, snap)
+        t0 = time.perf_counter()
+        chunked()  # the capture, then GRAPH_K replays
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        graphed = take(state, gens)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if graphed[1] != eager[0][1] or not all(torch.equal(a, b)
+                                            for a, b in zip(graphed[2], eager[0][2])):
+        raise AssertionError("graphs: the replayed chunk's step or generators differ from "
+                             f"{GRAPH_K} eager calls'")
+    floor = state_agreement(torch, eager[1][0], eager[0][0])
+    agreement = state_agreement(torch, graphed[0], eager[0][0])
+    if not agreement["worst_share_of_tolerance"] < 1.0:
+        raise AssertionError(f"graphs: replayed state outside the DA parity tolerance: "
+                             f"{agreement}; eager against eager: {floor}")
+    single, chunked = make_call(1), make_call(GRAPH_K)
+    single()
+    chunked()  # warm-up
+    chunked()  # capture and replays
+    eager_profile = device_profile(torch, single)
+    replay_profile = device_profile(torch, chunked)
+    per_eager = {k: eager_profile["port_kernel_launches"][k] for k in PATH_KERNEL_NAMES}
+    per_replay = {k: replay_profile["port_kernel_launches"][k] / GRAPH_K for k in PATH_KERNEL_NAMES}
+    if per_replay != per_eager or not any(per_eager.values()):
+        raise AssertionError(f"graphs: kernels per replay {per_replay}, per eager iteration "
+                             f"{per_eager}")
+    times = {"k1_eager": timed_calls(torch, single, 4, 1, images),
+             f"k{GRAPH_K}_replayed": timed_calls(torch, chunked, 2, GRAPH_K, images)}
+    chunk8 = make_call(8)
+    chunk8()  # warm-up
+    chunk8()  # capture and replays
+    times["k8_replayed"] = timed_calls(torch, chunk8, 2, 8, images)
+    return {"replay_vs_eager": {"generators_equal": True, "steps_equal": True, **agreement},
+            "eager_vs_eager": floor, "cudnn_deterministic_for_the_check": True,
+            "capture_and_replay_s": capture_s, "kernels_per_eager_iteration": per_eager,
+            "kernels_per_replay": per_replay, "times": times,
+            "idle_share": {"k1_eager": eager_profile["idle_share"],
+                           f"k{GRAPH_K}_replayed": replay_profile["idle_share"]},
+            "device_busy_ms_per_iter": {
+                "k1_eager": eager_profile["device_busy_ms"],
+                f"k{GRAPH_K}_replayed": replay_profile["device_busy_ms"] / GRAPH_K},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_graphs(torch, models, train, data, smi):
+    """Phase 8a: the DA iteration at phase 5's configuration and the pretrain
+    iteration, each replayed from a CUDA graph against eager execution."""
+    t0 = time.perf_counter()
+    stores = [data.DeviceDataStore(SyntheticSplit(256, RAW, seed=seed), device="cuda",
+                                   raw_size=RAW, verbose=False) for seed in (2, 3)]
+    model = build_model(torch, models, seed=9).cuda()
+    state = train.create_da_state(model, device="cuda", with_ema=True)
+    gens = [stores[0].generator(11), stores[1].generator(12)]
+
+    def da_call(k):
+        fused = train.make_fused_da_iteration(model, stores[0], stores[1], BATCH,
+                                              steps_per_call=k, share_target_features=True,
+                                              ema_decay=0.99)
+        return lambda: fused(state, *gens)[1]
+
+    da = graph_check(torch, da_call, state, gens, 2 * BATCH)
+    del model, state, da_call
+    torch.cuda.empty_cache()
+    pose = models.PoseResNet(models.resnet101(), num_keypoints=JOINTS).cuda()
+    pstate = train.create_pretrain_state(pose, device="cuda")
+    p_gens = [stores[0].generator(13)]
+
+    def pre_call(k):
+        fused = train.make_fused_pretrain_iteration(pose, stores[0], BATCH, steps_per_call=k)
+        return lambda: fused(pstate, p_gens[0], 0.001)[1]
+
+    pre = graph_check(torch, pre_call, pstate, p_gens, BATCH)
+    line(f"phase 8a graphed iterations resnet101 256²/64²/21, K={GRAPH_K} replays vs eager", {
+        "card": smi, "seconds": time.perf_counter() - t0, "da_batch_32_plus_32": da,
+        "pretrain_batch_32": pre})
+
+
+def phase_cli_chunked(torch, kernels, smi, cli):
+    """Phase 8b: the training CLI at phase 6's configuration with
+    ``--steps-per-call 4``: ``--max-steps 4`` then ``--resume`` to 8 against
+    a straight run to 8 (whose second chunk is a replay), cuDNN
+    deterministic; the launches the runs imply."""
+    from dahpe_tpu_torch.cli import train as train_cli
+    from dahpe_tpu_torch.cli.args import build_parser
+    from dahpe_tpu_torch.utils import checkpoint as ckpt
+    from dahpe_tpu_torch.utils import fast_ckpt
+
+    argv, root = cli["argv"], cli["root"]
+    common = ("--pretrain", cli["pretrain"], "--epochs", "2", "-i", str(GRAPH_K),
+              "--steps-per-call", str(GRAPH_K))
+    seconds = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, extra in (("cut", ("--max-steps", str(GRAPH_K))),
+                            ("resumed", ("--max-steps", str(2 * GRAPH_K), "--resume",
+                                         os.path.join(root, "chunk_cut", "checkpoints",
+                                                      "latest"))),
+                            ("straight", ("--max-steps", str(2 * GRAPH_K)))):
+            t0 = time.perf_counter()
+            log = "chunk_straight" if name == "straight" else "chunk_cut"
+            train_cli.main(build_parser("train").parse_args(argv(log, *common, *extra)))
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launches = kernels.read()
+    latest = [os.path.join(root, log, "checkpoints", "latest")
+              for log in ("chunk_cut", "chunk_straight")]
+    resumed, direct = (fast_ckpt.flatten_tree(fast_ckpt.load_packed_tree(p)) for p in latest)
+    if ([p for p, _ in resumed] != [p for p, _ in direct]
+            or int(dict(resumed)[("step",)]) != 2 * GRAPH_K):
+        raise AssertionError("chunked resume: the checkpoints hold different trees or steps")
+    unequal, worst = 0, 0.0
+    for (path, x), (_, y) in zip(resumed, direct):
+        if not torch.equal(x, y):
+            unequal += 1
+            if x.is_floating_point():
+                worst = max(worst, float((x - y).abs().max()))
+            if not torch.allclose(x.double(), y.double(), rtol=1e-4, atol=1e-6):
+                raise AssertionError(f"chunked resume: {'/'.join(path)} differs from the "
+                                     "straight run")
+    aux = [ckpt.load_aux(p) for p in latest]
+    if not all(np.array_equal(aux[0][k], aux[1][k]) for k in ("key_s", "key_t")):
+        raise AssertionError("chunked resume: the sampling generators did not continue")
+    # wrapper launches: every eager iteration (the cut and resumed runs' one
+    # chunk each, the straight run's first) and the one capture, 7/3/2 each;
+    # one Gaussian per eval batch of the straight run's epoch-0 validation
+    # (source, target, EMA)
+    iterations = 3 * GRAPH_K + 1
+    expected = dict(NO_LAUNCHES, render_gaussian=7 * iterations + 3 * cli["val_batches"],
+                    pseudo_labels=3 * iterations, rotate3_fused=2 * iterations)
+    if launches != expected:
+        raise AssertionError(f"chunked cli: launches {launches}, expected {expected}")
+    records = [json.loads(r) for r in open(os.path.join(root, "chunk_straight",
+                                                        "metrics.jsonl"))]
+    for name in os.listdir(root):
+        shutil.rmtree(os.path.join(root, name, "checkpoints"), ignore_errors=True)
+    for name in ("cache", "phase8_pretrain"):
+        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    line(f"phase 8b training CLI --steps-per-call {GRAPH_K} resnet101 256²/64², batch 32", {
+        "card": smi, "run_s": seconds, "straight_epoch0": {
+            k: records[0][k] for k in ("loss_s", "loss_gf", "loss_gt", "val_target_ema")},
+        "resume": {"steps": [GRAPH_K, 2 * GRAPH_K], "leaves": len(resumed),
+                   "unequal_leaves": unequal, "max_abs_diff": worst,
+                   "bit_identical": unequal == 0, "generators_equal": True,
+                   "rtol": 1e-4, "atol": 1e-6},
+        "launches": launches})
+    return launches
+
+
+def phase_adaptation(torch, smi):
+    """Phase 8c: the adaptation experiment at its acceptance configuration
+    (resnet18 at 128²/32², shift 0.3, content 0.3, style 1.0, EMA 0.99,
+    confidence gate 0.5, seed 0), cut to ``ADAPT_ITERS`` + ``ADAPT_ITERS``
+    iterations; every number it returns must be finite."""
+    from dahpe_tpu_torch.experiments import run_adaptation_experiment
+
+    t0 = time.perf_counter()
+    result = run_adaptation_experiment(
+        arch="resnet18", pre_iters=ADAPT_ITERS, da_iters=ADAPT_ITERS, batch=32, n_train=512,
+        image_size=128, heatmap_size=32, raw_size=160, shift=0.3, content=0.3, style=1.0,
+        ema_decay=0.99, conf_gate=0.5, eval_every=100, seed=0, verbose=False)
+    seconds = time.perf_counter() - t0
+    numbers = [v for v in result.values() if isinstance(v, float)]
+    numbers += [p for _, p in result["curve"]]
+    if not all(np.isfinite(v) for v in numbers):
+        raise AssertionError(f"adaptation: non-finite result {result}")
+    line(f"phase 8c adaptation resnet18 128²/32², {ADAPT_ITERS}+{ADAPT_ITERS} iterations, seed 0",
+         {"card": smi, "seconds": seconds, "cut": {"pre_iters": ADAPT_ITERS,
+                                                   "da_iters": ADAPT_ITERS,
+                                                   "acceptance": [4000, 3000]},
+          "result": result})
+
+
 def main() -> int:
     import torch
 
@@ -1742,6 +2032,27 @@ def main() -> int:
     if artifact_launches["render_gaussian"] == 0:
         raise AssertionError("render_gaussian kernel never launched on the artifact's eval path")
     for name, count in artifact_launches.items():
+        launches[name] += count
+    torch.cuda.empty_cache()
+    # phase 7's servers set cuDNN deterministic for the process; training
+    # runs at cuDNN's default, as phases 5 and 6 do
+    torch.backends.cudnn.deterministic = False
+    kernels.reset()  # main path 5: the DA and pretrain iterations replayed from CUDA graphs
+    phase_graphs(torch, models, train, data, smi)
+    for name, count in kernels.read().items():
+        if name in PATH_KERNELS and count == 0:
+            raise AssertionError(f"{name} kernel never launched on the graphed paths")
+        launches[name] += count
+    torch.cuda.empty_cache()
+    kernels.reset()  # main path 6: the training CLI with --steps-per-call
+    for name, count in phase_cli_chunked(torch, kernels, smi, cli_best).items():
+        launches[name] += count
+    torch.cuda.empty_cache()
+    kernels.reset()  # main path 7: the adaptation experiment
+    phase_adaptation(torch, smi)
+    for name, count in kernels.read().items():
+        if name in PATH_KERNELS and count == 0:
+            raise AssertionError(f"{name} kernel never launched on the adaptation path")
         launches[name] += count
 
     sources = {

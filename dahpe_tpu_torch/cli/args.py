@@ -106,8 +106,12 @@ def build_parser(phase: str = "train") -> argparse.ArgumentParser:
                              "host traffic. Combine with --decoded-cache to "
                              "make the one-time upload decode-free")
     parser.add_argument("--steps-per-call", default=1, type=int, metavar="K",
-                        help="train iterations per fused call; only K=1 is "
-                             "ported (K > 1 is ROADMAP queue 1 item 7)")
+                        help="train iterations per fused call (needs "
+                             "--device-store for K > 1): on the card one "
+                             "captured iteration replayed K times as a CUDA "
+                             "graph; printed metrics are chunk means, and "
+                             "--iters-per-epoch, --print-freq, --save-every "
+                             "and --max-steps must be multiples of K")
     parser.add_argument("--device-aug", action="store_true",
                         help="host threads only decode+crop; all augmentation "
                              "(rotation kernel, crop-resize, jitter, blur, "

@@ -36,17 +36,34 @@ def refuse_unported(args) -> None:
 
 
 def validate_steps_per_call(args) -> int:
-    """``--steps-per-call`` as a chunk size: only K = 1 is ported.
+    """``--steps-per-call`` as a chunk size K, checked before anything runs.
 
-    K < 1 is rejected (the JAX package coerces 0 and negative values to 1),
-    and K > 1 (a CUDA-graph replay of K iterations) is ROADMAP queue 1
-    item 7. Checked before anything runs, on every input mode."""
+    K > 1 runs K iterations per fused call (a CUDA graph replayed K times on
+    the card, ``train/fused.py``), so every host-side boundary (progress
+    reports, the stop poll, ``--save-every`` checkpoints, ``--max-steps``)
+    can only land on a multiple of K: it needs ``--device-store`` (the
+    host-fed paths need a host round trip per step) and cadences that are
+    multiples of K, as in the JAX package. A K below 1 is rejected (the JAX
+    package coerces it to 1)."""
     k = int(args.steps_per_call)
     if k < 1:
         raise SystemExit(f"--steps-per-call {k}: K must be at least 1")
-    if k > 1:
-        raise SystemExit(f"--steps-per-call {k}: K > 1 (a CUDA-graph replay of K "
-                         "iterations) is not ported yet (ROADMAP.md queue 1 item 7)")
+    if k == 1:
+        return k
+    if not args.device_store:
+        raise SystemExit(
+            f"--steps-per-call {k} needs --device-store: only the fused iteration "
+            "runs steps without a host round trip per step")
+    bad = [f"{name}={value}" for name, value in (
+        ("--iters-per-epoch", args.iters_per_epoch),
+        ("--print-freq", args.print_freq),
+        ("--save-every", args.save_every),
+        ("--max-steps", args.max_steps),
+    ) if value and value % k]
+    if bad:
+        raise SystemExit(
+            f"--steps-per-call {k}: {', '.join(bad)} must be multiples of K: chunk "
+            "boundaries are the only report, checkpoint and stop points of a chunked run")
     return k
 
 

@@ -14,6 +14,10 @@ device through the rotation kernel) and ``--device-store`` (the fused
 iteration: gather, augmentation, targets and the step from device-resident
 data, no host traffic).
 
+``--steps-per-call K`` (with ``--device-store``) runs K iterations per
+fused call, a CUDA graph replayed K times on the card; the loops then step
+by K, print chunk means and stop, save and resume only on chunk boundaries.
+
 Deliberate divergences from the JAX package's CLI: ``--steps-per-call`` is
 checked before anything runs on every input mode, and a K below 1 is
 rejected, not coerced; the stop poller is the single-process local check
@@ -141,8 +145,9 @@ def pretrain_phase(args, logger, train_source_loader, val_source_loader,
     """Supervised source pretraining (``train1.py:158-181``).
 
     With ``source_store`` the batches come from device memory through the
-    fused iteration (sampling generator seeded ``args.seed + 7``); otherwise
-    the host PIL loader feeds the step. ``stop()`` is polled at every
+    fused iteration (sampling generator seeded ``args.seed + 7``,
+    ``--steps-per-call`` iterations a call); otherwise the host PIL loader
+    feeds the step. ``stop()`` is polled at every
     iteration boundary: on a stop the model lands in
     ``checkpoints/pretrain_interrupt`` and the function returns None (the
     caller exits 0; a later run continues with ``--pretrain`` on that path).
@@ -154,11 +159,12 @@ def pretrain_phase(args, logger, train_source_loader, val_source_loader,
     if args.imagenet_pth:
         ckpt.load_imagenet_backbone(args.imagenet_pth, model)
     hyper = dict(momentum=args.momentum, weight_decay=args.wd)
+    chunk = validate_steps_per_call(args) if source_store is not None else 1
     if source_store is not None:
         fused = make_fused_pretrain_iteration(
             model, source_store, args.batch_size, image_size=args.image_size,
             heatmap_size=args.heatmap_size, rotation=args.rotation,
-            scale_range=tuple(args.resize_scale), **hyper,
+            scale_range=tuple(args.resize_scale), steps_per_call=chunk, **hyper,
         )
         gen = source_store.generator(args.seed + 7)
 
@@ -187,7 +193,7 @@ def pretrain_phase(args, logger, train_source_loader, val_source_loader,
         progress = ProgressMeter(args.iters_per_epoch, [batch_time, losses, accs],
                                  prefix=f"Epoch: [{epoch}]")
         end = time.time()
-        for i in range(args.iters_per_epoch):
+        for i in range(0, args.iters_per_epoch, chunk):
             state, metrics = run_iteration(state, lr)
             step = epoch * args.iters_per_epoch + i
             if i % args.print_freq == 0:
@@ -368,6 +374,12 @@ def _run_phases(args, logger, saver, stop_signum):
         return
 
     # --- DA training ------------------------------------------------------
+    chunk = validate_steps_per_call(args)
+    if start_iter % chunk:
+        raise SystemExit(
+            f"--resume checkpoint stops at mid-epoch iteration {start_iter}, which is not "
+            f"a --steps-per-call {chunk} chunk boundary: resume with the K it was saved "
+            "under (or K=1)")
     step_config = dict(
         base_lr=args.lr, lr_gamma=args.lr_gamma, lr_decay=args.lr_decay,
         trade_off=args.trade_off, momentum=args.momentum, weight_decay=args.wd,
@@ -377,10 +389,12 @@ def _run_phases(args, logger, saver, stop_signum):
     producer = dict(image_size=args.image_size, heatmap_size=args.heatmap_size,
                     rotation=args.rotation, scale_range=tuple(args.resize_scale))
     if args.device_store:
-        # one call per iteration: both stores' gather + augmentation +
-        # targets and the 3-step minimax, the generators advancing on device
+        # one call per chunk of iterations: both stores' gather +
+        # augmentation + targets and the 3-step minimax, the generators
+        # advancing on device
         fused = make_fused_da_iteration(model, stores["source"], stores["target"],
-                                        args.batch_size, **producer, **step_config)
+                                        args.batch_size, steps_per_call=chunk,
+                                        **producer, **step_config)
         gens = [stores["source"].generator(0), stores["target"].generator(0)]
         for i, key in enumerate(("key_s", "key_t")):
             if key in resume_aux:
@@ -465,9 +479,9 @@ def _run_phases(args, logger, saver, stop_signum):
                                  prefix=f"Epoch: [{epoch}]")
         end = time.time()
         first_iter = start_iter if epoch == start_epoch else 0
-        for i in range(first_iter, args.iters_per_epoch):
+        for i in range(first_iter, args.iters_per_epoch, chunk):
             state, metrics = run_iteration(state)
-            global_step += 1
+            global_step += chunk
             if i % args.print_freq == 0:
                 vals = host_scalars(metrics, tuple(meters))
                 check_finite(saver, logger, state, global_step,

@@ -5,6 +5,7 @@ Port of ``dahpe_tpu/models/heads.py``. Parity targets in the reference:
 plain head ``regda_7.py:4906-4929``, 64→32 fusion ``regda_7.py:4508-4581``,
 →16 fusion ``regda_7.py:4583-4662``. Submodules are torch Sequential indices,
 so ``.pth`` keys load unchanged (e.g. ``head_adv2.last_lay.2.weight``).
+Every conv starts from the JAX package's ``head_init`` (:func:`head_init_`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,19 @@ import torch
 from torch import nn
 
 from dahpe_tpu_torch.models.batch_norm import BatchNorm2d
+
+
+def head_init_(module: nn.Module) -> nn.Module:
+    """The JAX package's head and deconv init (``head_init``,
+    ``dahpe_tpu/models/heads.py:9``, the reference's ``init_weights``):
+    every conv and transposed conv of ``module`` gets weights ~ N(0, 1e-3²)
+    and zero biases; BN layers keep ones and zeros."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            nn.init.normal_(m.weight, std=1e-3)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return module
 
 
 class PlainHead(nn.Sequential):
@@ -25,6 +39,7 @@ class PlainHead(nn.Sequential):
                        BatchNorm2d(channel_dim), nn.ReLU(inplace=True)]
         layers.append(nn.Conv2d(channel_dim, num_keypoints, 1))
         super().__init__(*layers)
+        head_init_(self)
 
 
 class DownsampleStage(nn.Sequential):
@@ -38,6 +53,7 @@ class DownsampleStage(nn.Sequential):
             nn.Conv2d(c, c, 3, stride=2, padding=1), BatchNorm2d(c), nn.ReLU(inplace=True),
             nn.Conv2d(c, c, 1), BatchNorm2d(c), nn.ReLU(inplace=True),
         )
+        head_init_(self)
 
 
 class FusionHead(nn.Module):
@@ -59,6 +75,7 @@ class FusionHead(nn.Module):
             self.feature_conv = nn.Conv2d(c, c, 3, stride=feature_stride, padding=1)
         self.last_lay = DownsampleStage(c)
         self.model = PlainHead(num_keypoints, num_layers, c)
+        head_init_(self)
 
     def forward(self, feature: torch.Tensor, heatmap: torch.Tensor) -> torch.Tensor:
         x = self.heatmap_conv(heatmap) + self.feature_conv(feature)

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from dahpe_tpu_torch.core.layout import from_bkhw, to_bkhw
-from dahpe_tpu_torch.models.heads import FusionHead, PlainHead
+from dahpe_tpu_torch.models.heads import FusionHead, PlainHead, head_init_
 from dahpe_tpu_torch.models.upsampling import Upsampling
 from dahpe_tpu_torch.ops.gradient_scale import gradient_scale
 
@@ -32,7 +32,7 @@ class PoseResNet(nn.Module):
         super().__init__()
         self.backbone = backbone
         self.upsampling = Upsampling(backbone.out_features, (feature_dim,) * 3)
-        self.head = nn.Conv2d(feature_dim, num_keypoints, 1)
+        self.head = head_init_(nn.Conv2d(feature_dim, num_keypoints, 1))
 
     def forward(self, x: torch.Tensor, gl_coeff=0.0) -> torch.Tensor:
         del gl_coeff  # uniform signature with MultiHeadPoseResNet

@@ -3,7 +3,8 @@
 Port of ``dahpe_tpu/models/resnet.py`` (the reference's
 ``uda/model/resnet.py``). Attribute names are the torch state-dict keys
 (``conv1 / bn1 / layerN.i.convJ / ... / downsample.{0,1}``), so a reference
-``.pth`` loads with a plain ``load_state_dict``. The modules run NCHW.
+``.pth`` loads with a plain ``load_state_dict``. The modules run NCHW. The
+convs start from the JAX package's initialisation (:func:`conv_init_`).
 """
 
 from __future__ import annotations
@@ -16,10 +17,20 @@ from torch import nn
 from dahpe_tpu_torch.models.batch_norm import BatchNorm2d
 
 
+def conv_init_(conv: nn.Conv2d) -> nn.Conv2d:
+    """The JAX package's ResNet conv init (``dahpe_tpu/models/resnet.py:21``,
+    Kaiming-normal fan_out as torchvision's ResNets): a normal truncated at
+    two standard deviations, scaled so its variance is 2 / fan_out."""
+    fan_out = conv.weight.shape[0] * conv.weight[0, 0].numel()
+    std = (2.0 / fan_out) ** 0.5 / 0.87962566103423978  # the truncation's variance
+    nn.init.trunc_normal_(conv.weight, std=std, a=-2.0 * std, b=2.0 * std)
+    return conv
+
+
 def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(
+    return conv_init_(nn.Conv2d(
         cin, cout, k, stride=stride, padding=k // 2, groups=groups, bias=False
-    )
+    ))
 
 
 def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
@@ -81,7 +92,7 @@ class ResNet(nn.Module):
                  base_width: int = 64):
         super().__init__()
         self.block = block
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = conv_init_(nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False))
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)

@@ -5,6 +5,7 @@ Port of ``dahpe_tpu/models/upsampling.py`` (the reference's
 [ConvTranspose2d(k, s=2) → BN → ReLU] stages, ``(B, 2048, 8, 8)`` to
 ``(B, 256, 64, 64)``. The deconv is torch's own; the weight keeps torch's
 ``(I, O, kh, kw)`` layout, which the JAX package stores flipped as HWIO.
+The deconvs start from the JAX package's ``head_init``, N(0, 1e-3²).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Sequence
 from torch import nn
 
 from dahpe_tpu_torch.models.batch_norm import BatchNorm2d
+from dahpe_tpu_torch.models.heads import head_init_
 
 
 def deconv_geometry(kernel_size: int) -> tuple[int, int]:
@@ -49,3 +51,4 @@ class Upsampling(nn.Sequential):
                        BatchNorm2d(dim), nn.ReLU(inplace=True)]
             in_channels = dim
         super().__init__(*layers)
+        head_init_(self)

@@ -2,7 +2,8 @@
 
 Port of ``dahpe_tpu/ops/gradient_scale.py``: identity forward, backward
 multiplies the gradient by a coefficient that is a pure function of the step
-count (``utils/gl.py:8-69`` of the reference).
+count (``utils/gl.py:8-69`` of the reference). The coefficient may be a
+device tensor computed from a device step count.
 """
 
 from __future__ import annotations
@@ -37,7 +38,10 @@ def warm_start_coeff(
     hi: float = 0.1,
     max_iters: int = 1000,
 ) -> torch.Tensor:
-    """λ(i) = 2(hi-lo) / (1 + exp(-α i / N)) - (hi-lo) + lo, in float32."""
+    """λ(i) = 2(hi-lo) / (1 + exp(-α i / N)) - (hi-lo) + lo, in float32: a
+    0-d tensor on the device of ``step`` (a host int gives a CPU tensor). A
+    device step count gives λ on the device with no host read, so a captured
+    iteration computes each replay's own λ."""
     i = torch.as_tensor(step, dtype=torch.float32)
     span = hi - lo
     return 2.0 * span / (1.0 + torch.exp(-alpha * i / max_iters)) - span + lo

@@ -11,17 +11,18 @@ per iteration:
   Step C (target):  backbone+upsampling minimize 0.3·rd32(min) + 1·rd64(min),
                     reaching the features only through the λ-scaled GL layer
 
-The step runs eagerly on the model's device and never waits for it: the
-step count, the learning rate and the GL coefficient are host numbers, the
-pseudo-labels are built from peaks decoded on the device (one decode per
-main-head heatmap), and the metrics stay device tensors. No ``.item()``, no
-copy to the host, no Python branch on a device value.
+The step runs on the model's device and never waits for it: the step count
+is a device tensor the step advances in place, the learning rate and the GL
+coefficient are computed from it on the device, the pseudo-labels are built
+from peaks decoded on the device (one decode per main-head heatmap), and the
+metrics stay device tensors. No ``.item()``, no copy to the host, no Python
+branch on a device value, so one iteration can be captured as a CUDA graph
+and replayed (``train/fused.py``).
 """
 
 from __future__ import annotations
 
 import inspect
-from dataclasses import dataclass
 from typing import Callable
 
 import torch
@@ -37,6 +38,7 @@ from dahpe_tpu_torch.train import disparity
 from dahpe_tpu_torch.train.ema import ema_state, ema_update
 from dahpe_tpu_torch.train.optim import (
     DA_PARTITIONS,
+    StepTable,
     da_lr,
     make_partitioned_sgd,
     partition_params,
@@ -49,16 +51,36 @@ ADV = ("h_adv", "h_adv2", "h_adv3")
 SHARED_MODULES = ("backbone", "upsampling", "head")  # run once on the target batch
 
 
-@dataclass
 class DATrainState:
     """The model (its parameters and BN statistics), one SGD per partition
-    of ``DA_PARTITIONS``, the host step count and the optional EMA entries
-    (``train.ema.ema_state`` keys)."""
+    of ``DA_PARTITIONS``, the step count and the optional EMA entries
+    (``train.ema.ema_state`` keys).
 
-    model: torch.nn.Module
-    optimizers: dict[str, torch.optim.SGD]
-    step: int = 0
-    ema: dict[str, torch.Tensor] | None = None
+    The step count is kept twice: ``step_t``, a 0-d int64 tensor on the
+    model's device that the step advances in place (the schedules read it,
+    so each replay of a captured iteration sees its own step), and
+    ``step``, its host mirror, which the caller advances (:meth:`advance`)
+    without reading the device. Setting ``step`` sets both."""
+
+    def __init__(self, model: torch.nn.Module, optimizers: dict[str, torch.optim.SGD],
+                 step: int = 0, ema: dict[str, torch.Tensor] | None = None):
+        self.model, self.optimizers, self.ema = model, optimizers, ema
+        device = next(model.parameters()).device
+        self.step_t = torch.zeros((), dtype=torch.int64, device=device)
+        self.step = step
+
+    @property
+    def step(self) -> int:
+        return self._step
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self._step = int(value)
+        self.step_t.fill_(self._step)
+
+    def advance(self, k: int = 1) -> None:
+        """Move the host mirror by ``k`` steps the device already took."""
+        self._step += k
 
 
 def create_da_state(
@@ -114,7 +136,14 @@ def make_da_train_step(
 
     Batches are dicts with ``image (B,H,W,3)``, ``target (B,64,64,K)`` and
     ``weight (B,K)`` on the model's device; the state is updated in place
-    and returned.
+    and returned. The metrics are 0-d device tensors (``lr`` and
+    ``gl_coeff`` too) and, with ``compute_metrics``, the predictions.
+
+    The returned function has two attributes for ``train/fused.py``:
+    ``run(state, batch_s, batch_t) -> metrics``, the step without the host
+    mirror's advance (what a CUDA graph captures), and ``cover(state, k)``,
+    which extends the lr table to the next ``k`` steps and returns True when
+    it moved it.
 
     ``conf_gate=q`` drops, per joint, the fraction ``q`` of the target
     samples whose main-head peak is lowest (a batch quantile with linear
@@ -138,6 +167,7 @@ def make_da_train_step(
     hyper = dict(momentum=momentum, weight_decay=weight_decay)
     adv_params = partition_params(model, sum((DA_PARTITIONS[n] for n in ADV), ()))
     f_params = partition_params(model, DA_PARTITIONS["f"])
+    lr_table = StepTable(lambda i: da_lr(i, base_lr=base_lr, gamma=lr_gamma, decay=lr_decay))
 
     def gated_weight(y, w):
         if not conf_gate:
@@ -164,10 +194,10 @@ def make_da_train_step(
         l2 = disparity.rd_64(y, advs["y_adv"], None, w, "min", peaks=peaks)
         return trade_off * (0.3 * l1 + 1.0 * l2)
 
-    def train_step(state: DATrainState, batch_s: dict, batch_t: dict):
+    def run(state: DATrainState, batch_s: dict, batch_t: dict) -> dict:
         opts = state.optimizers
-        lam = float(warm_start_coeff(state.step, hi=gl_hi, max_iters=gl_max_iters))
-        lr = da_lr(state.step, base_lr=base_lr, gamma=lr_gamma, decay=lr_decay)
+        lam = warm_start_coeff(state.step_t, hi=gl_hi, max_iters=gl_max_iters)
+        lr = lr_table(state.step_t)
         x_s, label_s, w_s = batch_s["image"], batch_s["target"], batch_s["weight"]
         x_t, label_t, w_t = batch_t["image"], batch_t["target"], batch_t["weight"]
         model.train()
@@ -252,8 +282,18 @@ def make_da_train_step(
                 _, acc_t_adv, _, _ = pck_accuracy(out_t["y_adv"].detach(), label_t)
             metrics.update(acc_s=acc_s, acc_t=acc_t, acc_s_adv=acc_s_adv,
                            acc_t_adv=acc_t_adv, pred_s=pred_s, pred_t=pred_t)
-        state.step += 1
+        state.step_t.add_(1)
+        return metrics
+
+    def cover(state: DATrainState, k: int) -> bool:
+        return lr_table.cover(state.step + k, state.step_t.device)
+
+    def train_step(state: DATrainState, batch_s: dict, batch_t: dict):
+        cover(state, 1)
+        metrics = run(state, batch_s, batch_t)
+        state.advance(1)
         return state, metrics
 
+    train_step.run, train_step.cover = run, cover
     return train_step
 

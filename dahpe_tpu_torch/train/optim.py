@@ -9,8 +9,11 @@ the JAX package's ``apply_partition_updates`` reproduces with optax. Their
 update order is ``torch_sgd``'s: weight decay added to the gradient before
 the momentum trace, then the Nesterov lookahead.
 
-Learning rates are plain host floats, pure functions of the step count kept
-on the host, so setting them costs no device sync.
+The update itself is written with ``torch._foreach_*`` ops on a 0-d lr
+tensor, so the lr can live on the device and change inside a captured CUDA
+graph (``torch.optim.SGD`` reads a tensor lr back to the host). The DA lr
+is :class:`StepTable`'s table of the host schedule :func:`da_lr`, indexed
+by the device step count: the device reads the host function's bits.
 """
 
 from __future__ import annotations
@@ -47,21 +50,44 @@ def make_partitioned_sgd(
     }
 
 
+@torch.no_grad()
+def sgd_update(params: list[torch.Tensor], grads: list[torch.Tensor],
+               momentum_buffers: list[torch.Tensor], lr: torch.Tensor, *,
+               momentum: float, weight_decay: float) -> None:
+    """``torch.optim.SGD``'s Nesterov step with coupled weight decay and no
+    dampening, in place, with ``lr`` a 0-d tensor beside the parameters:
+    ``d = g + wd·p``, ``buf = m·buf + d``, ``p -= lr·(d + m·buf)``. A zero
+    buffer gives torch's first step (``buf = d``). No host read."""
+    d = torch._foreach_add(grads, params, alpha=weight_decay)
+    torch._foreach_mul_(momentum_buffers, momentum)
+    torch._foreach_add_(momentum_buffers, d)
+    torch._foreach_add_(d, momentum_buffers, alpha=momentum)
+    torch._foreach_mul_(d, lr)
+    torch._foreach_sub_(params, d)
+
+
 def step_partitions(optimizers: dict[str, torch.optim.SGD], names: tuple[str, ...],
-                    lr: float, **hyper) -> None:
-    """SGD-step the named partitions at ``lr`` (and any other group setting
-    in ``hyper``, e.g. ``momentum``); the others keep their parameters and
-    momentum. A parameter the loss did not reach gets a zero gradient, so
-    weight decay and momentum still move it, as in the JAX package (torch
-    alone would skip it)."""
+                    lr: torch.Tensor, **hyper) -> None:
+    """SGD-step the named partitions at the 0-d tensor ``lr`` (and any other
+    group setting in ``hyper``, e.g. ``momentum``) with :func:`sgd_update`;
+    the others keep their parameters and momentum. Each optimizer keeps its
+    momentum in ``state[p]["momentum_buffer"]``, as ``torch.optim.SGD``
+    does (zeros until its first step). A parameter the loss did not reach
+    gets a zero gradient, so weight decay and momentum still move it, as in
+    the JAX package (torch alone would skip it)."""
     for name in names:
         opt = optimizers[name]
         for group in opt.param_groups:
-            group.update(lr=lr, **hyper)
-            for p in group["params"]:
+            group.update(**hyper)
+            params = group["params"]
+            for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-        opt.step()
+                if opt.state[p].get("momentum_buffer") is None:
+                    opt.state[p]["momentum_buffer"] = torch.zeros_like(p)
+            sgd_update(params, [p.grad for p in params],
+                       [opt.state[p]["momentum_buffer"] for p in params], lr,
+                       momentum=group["momentum"], weight_decay=group["weight_decay"])
 
 
 def zero_grad(optimizers: dict[str, torch.optim.SGD], names: tuple[str, ...]) -> None:
@@ -83,6 +109,39 @@ def da_lr(
     i = np.float32(step)
     factor = (np.float32(1.0) + np.float32(gamma) * i) ** np.float32(-decay)
     return float(np.float32(optimizer_lr * base_lr) * factor)
+
+
+class StepTable:
+    """A float32 function of the step count as a device tensor, read at a
+    device step count with no host read: ``fn(step)`` evaluated on the host
+    once per step into a table on the step's device, so the device value is
+    the host function's bits (a float32 ``pow`` on the card rounds
+    differently from the host's). :meth:`cover` extends the table before
+    the steps that need it."""
+
+    def __init__(self, fn, length: int = 1024):
+        self.fn = fn
+        self.length = int(length)
+        self.values = np.zeros(0, np.float32)  # the host copy
+        self.table: torch.Tensor | None = None
+
+    def cover(self, stop: int, device) -> bool:
+        """Make the table hold steps ``0 .. stop - 1`` on ``device``, doubling
+        its length as needed. Returns True when the table moved to new
+        memory (a CUDA graph that reads it must then be captured again)."""
+        device = torch.device(device)
+        if self.table is not None and self.table.device == device and stop <= len(self.table):
+            return False
+        while self.length < stop:
+            self.length *= 2
+        more = [self.fn(i) for i in range(len(self.values), self.length)]
+        self.values = np.concatenate([self.values, np.asarray(more, np.float32)])
+        self.table = torch.from_numpy(self.values).to(device)
+        return True
+
+    def __call__(self, step: torch.Tensor) -> torch.Tensor:
+        """The 0-d float32 entry at the 0-d int64 device ``step``."""
+        return self.table.index_select(0, step.reshape(1)).reshape(())
 
 
 def pretrain_lr_factor(

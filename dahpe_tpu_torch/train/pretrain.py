@@ -32,7 +32,8 @@ PRETRAIN_LR_SCALES = {"backbone": 0.1, "upsampling": 1.0, "head": 1.0}
 
 @dataclass
 class PretrainState:
-    """The model, one SGD per partition and the host step count."""
+    """The model, one SGD per partition and the host step count (the
+    pretrain step reads no schedule from it)."""
 
     model: torch.nn.Module
     optimizers: dict[str, torch.optim.SGD]
@@ -50,6 +51,15 @@ def create_pretrain_state(model: torch.nn.Module, *, device=None, momentum: floa
         model, PRETRAIN_PARTITIONS, momentum=momentum, weight_decay=weight_decay))
 
 
+def lr_tensor(lr, device) -> torch.Tensor:
+    """``lr`` (a host number or a 0-d tensor) as a 0-d float32 tensor on
+    ``device``; a host number is written by a fill, not copied, so the host
+    does not wait for the device."""
+    if isinstance(lr, torch.Tensor):
+        return lr.to(device=device, dtype=torch.float32).reshape(())
+    return torch.full((), float(np.float32(lr)), dtype=torch.float32, device=device)
+
+
 def make_pretrain_step(
     model: torch.nn.Module,
     *,
@@ -58,10 +68,16 @@ def make_pretrain_step(
     compute_metrics: bool = True,
 ) -> Callable:
     """``(state, batch, lr) -> (state, metrics)``; ``lr`` is the epoch-level
-    MultiStepLR value (``base_lr * pretrain_lr_factor(epoch)``), a host float."""
+    MultiStepLR value (``base_lr * pretrain_lr_factor(epoch)``): a host
+    number or a 0-d tensor, used as a float32 tensor on the model's device.
+    The metrics are 0-d device tensors.
+
+    The returned function's ``run(state, batch, lr_t) -> metrics`` is the
+    step on a device lr tensor without the host step count's advance (what
+    ``train/fused.py`` captures)."""
     hyper = dict(momentum=momentum, weight_decay=weight_decay)
 
-    def pretrain_step(state: PretrainState, batch: dict, lr: float):
+    def run(state: PretrainState, batch: dict, lr: torch.Tensor) -> dict:
         x, label, w = batch["image"], batch["target"], batch["weight"]
         model.train()
         zero_grad(state.optimizers, tuple(PRETRAIN_PARTITIONS))
@@ -69,15 +85,19 @@ def make_pretrain_step(
         loss = joints_kl_loss(y, label, w)
         loss.backward()
         for name in PRETRAIN_PARTITIONS:
-            # float32 product, as the JAX package scales its float32 lr
-            scaled = float(np.float32(lr) * np.float32(PRETRAIN_LR_SCALES[name]))
-            step_partitions(state.optimizers, (name,), scaled, **hyper)
-        metrics = {"loss_s": loss.detach(), "lr": float(lr)}
+            # a float32 product, as the JAX package scales its float32 lr
+            step_partitions(state.optimizers, (name,), lr * PRETRAIN_LR_SCALES[name], **hyper)
+        metrics = {"loss_s": loss.detach(), "lr": lr.clone()}
         if compute_metrics:
             with torch.no_grad():
                 metrics["acc_s"] = pck_accuracy(y.detach(), label)[1]
+        return metrics
+
+    def pretrain_step(state: PretrainState, batch: dict, lr):
+        metrics = run(state, batch, lr_tensor(lr, batch["image"].device))
         state.step += 1
         return state, metrics
 
+    pretrain_step.run = run
     return pretrain_step
 

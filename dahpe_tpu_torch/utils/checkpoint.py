@@ -82,7 +82,13 @@ def restore_state(path: str, state):
         params = dict(model.named_parameters())
         for part, optimizer in state.optimizers.items():
             for key, buf in tree["opt"][part].items():
-                optimizer.state[params[key]]["momentum_buffer"] = buf.clone()
+                # in place where the buffer exists: a captured iteration
+                # (train/fused.py) keeps updating the tensors it recorded
+                held = optimizer.state[params[key]].get("momentum_buffer")
+                if held is None:
+                    optimizer.state[params[key]]["momentum_buffer"] = buf.clone()
+                else:
+                    held.copy_(buf)
         if "ema" in tree:
             for key, value in state.ema.items():
                 value.copy_(tree["ema"][key])

@@ -228,12 +228,12 @@ def test_nan_watchdog_exits_3_and_keeps_latest_finite(roots, tmp_path, monkeypat
     (["--multihost"], "item 11"),
     (["--bf16"], "item 9"),
     (["--debug"], "item 9"),
-    (["--steps-per-call", "2"], "item 7"),
+    (["--steps-per-call", "2"], "needs --device-store"),
     (["--steps-per-call", "0"], "at least 1"),
 ])
 def test_unported_flags_are_refused(roots, tmp_path, flags, item):
-    """Refused before anything is built, naming the ROADMAP item; nothing is
-    silently ignored."""
+    """Refused before anything is built, naming the ROADMAP item (or, for
+    ``--steps-per-call``, the rule broken); nothing is silently ignored."""
     with pytest.raises(SystemExit, match=item):
         train_cli.cli_main(_argv(roots, tmp_path / "logs", *flags))
     assert not os.path.exists(tmp_path / "logs")

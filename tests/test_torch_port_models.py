@@ -216,3 +216,35 @@ def test_backbone_registry():
         models.get_backbone("vgg16")
     depth = sum(len(getattr(models.resnet101(), f"layer{i}")) for i in range(1, 5))
     assert depth == 3 + 4 + 23 + 3
+
+
+def test_initialisation_matches_jax():
+    """A freshly built port model starts from the JAX package's initial
+    distributions (``init``), key by key: ResNet convs Kaiming-normal
+    fan_out truncated at 2σ (``dahpe_tpu/models/resnet.py:21``), head and
+    deconv kernels N(0, 1e-3²) with zero biases (``heads.py:9``,
+    ``upsampling.py:20``), BN ones and zeros. Each port tensor's standard
+    deviation is within 10% of JAX's (tensors of 2048+ entries), no entry
+    lies beyond the truncation (backbone) or 6σ (heads), and the zeros and
+    ones are where JAX's are. Training from scratch (the adaptation
+    experiment, the CLI without ``--imagenet-pth``) starts where the JAX
+    package starts."""
+    jmodel = jmodels.MultiHeadPoseResNet(backbone=jax_backbone("basic"), num_keypoints=21)
+    variables = jmodel.init(jax.random.key(0), jnp.zeros((1, 32, 32, 3)), train=False)
+    want = state_dict_from_jax(jax.tree.map(np.asarray, variables))
+    torch.manual_seed(0)
+    got = models.MultiHeadPoseResNet(port_backbone("basic"), num_keypoints=21).state_dict()
+    assert set(want) <= set(got)
+    for key, w in want.items():
+        g, w = got[key].double(), w.double()
+        if torch.all(w == w.flatten()[0]):  # zeros and ones: BN, biases, statistics
+            assert torch.equal(g, w), key
+            continue
+        if w.numel() >= 2048:
+            np.testing.assert_allclose(float(g.std()), float(w.std()), rtol=0.1, err_msg=key)
+        if key.startswith("backbone"):
+            fan_out = g.shape[0] * g[0, 0].numel()
+            bound = 2 * (2.0 / fan_out) ** 0.5 / 0.87962566103423978
+        else:
+            bound = 6e-3
+        assert float(g.abs().max()) <= bound * (1 + 1e-6), key

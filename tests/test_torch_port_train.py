@@ -321,13 +321,30 @@ def test_pretrain_step_matches_jax():
                      model.state_dict(), "pretrain")
 
 
-def test_fused_iterations_take_one_step_per_call():
-    """K > 1 steps per call is a CUDA-graph replay still to port: it raises
-    and says where it is planned."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        make_fused_da_iteration(None, None, None, 2, steps_per_call=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        make_fused_pretrain_iteration(None, None, 2, steps_per_call=4)
+def test_fused_iterations_take_one_step_per_call(da_setup):
+    """At the default ``steps_per_call=1`` each call is one eager step: the
+    host step count and the device step tensor advance by one, and the
+    metrics are that step's (no chunk mean); a K below 1 is refused.
+    ``tests/test_torch_port_fused.py`` covers K > 1."""
+    from dahpe_tpu_torch.data.device_store import DeviceDataStore
+    from dahpe_tpu_torch.data.synthetic import SyntheticHands
+
+    mk = dict(n=4, seed=2, image_size=(IMAGE, IMAGE), heatmap_size=(HM, HM))
+    store = DeviceDataStore(SyntheticHands(split="train", **mk), device="cpu", raw_size=80,
+                            verbose=False)
+    _, variables, _ = da_setup
+    state = create_da_state(_port_model(variables), device="cpu")
+    fused = make_fused_da_iteration(state.model, store, store, B, image_size=IMAGE,
+                                    heatmap_size=HM)
+    for n in (1, 2):
+        state, metrics, *_ = fused(state, store.generator(n), store.generator(9))
+        assert state.step == int(state.step_t) == n
+        assert float(metrics["lr"]) == da_lr(n - 1)
+        assert metrics["pred_s"].shape == (B, K, 2)
+    with pytest.raises(ValueError, match="at least 1"):
+        make_fused_da_iteration(None, store, store, B, steps_per_call=0)
+    with pytest.raises(ValueError, match="at least 1"):
+        make_fused_pretrain_iteration(None, store, B, steps_per_call=0)
 
 
 def test_peaks_feed_all_labels_once():
