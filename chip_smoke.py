@@ -77,7 +77,27 @@ line, fail the run by raising:
    ``--max-steps 4`` then ``--resume`` to 8 against a straight run; (c) the
    adaptation experiment at its acceptance configuration (resnet18 at
    128²/32², shift 0.3, content 0.3, style 1.0, EMA 0.99, confidence gate
-   0.5, seed 0) cut to 200 + 200 iterations, every number finite.
+   0.5, seed 0) cut to 200 + 200 iterations, every number finite;
+9. the bfloat16 compute dtype (``--bf16``): (a) phase 5's DA iteration with
+   a bfloat16 model (float32 parameters): 7 / 3 / 2 path-kernel launches per
+   eager iteration, the float32 parameters moved and finite, bfloat16
+   heatmaps, the kernel iteration against the plain-kernel one from one
+   snapshot (phase 5's tolerances: rtol 1e-4 / atol 1e-7 on the weights,
+   1e-4 on the losses), the device profile (busy time, idle share, top operations,
+   time by kind, FLOP/s against the bfloat16 dense peak) and the fused
+   target's cast to float32, then phase 8a's graph check (a
+   replayed chunk bit for bit equal to 4 eager calls whenever two eager runs
+   are) with ms/iter at K = 1, 4 and 8; (b) the pretrain iteration the same
+   way; (c) phase 3's model exported by ``cli.export --bf16 --uint8-input``
+   and served in process and over HTTP at 1, 8 and 32 frames: the served
+   coordinates equal the bfloat16 eager predict's, and equal the float32
+   predict's wherever the float32 heatmap's top-2 gap exceeds twice the
+   bfloat16 heatmap's deviation from it; (d) phase 8b's CLI run with
+   ``--bf16`` (``--max-steps 4`` / ``--resume`` to 8 bit for bit equal to a
+   straight run), then ``cli.test --bf16`` on its ``best``, which must
+   score the PCK the run logged (0 at 8 iterations); (e) phase 8c's cut
+   acceptance in bfloat16, whose trained DA model's target PCK must lie
+   within 0.05 of a float32 twin's on the same weights.
 
 Then one JSON line of kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -98,6 +118,8 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bfloat16 tensor cores, dense
+BF16_EVAL_PCK_TOL = 0.05  # phase 9e: bf16 vs float32 target PCK on one model's weights
 IMAGE, HEATMAP, JOINTS, SIGMA = 256, 64, 21, 2.0
 GAUSSIAN_SHAPES = [(32, 64, 6), (32, 32, 4), (32, 16, 3)]  # (B, size, reach)
 GAUSSIAN_SHAPES_96 = [(32, 96, 6), (32, 48, 4), (32, 24, 3)]  # at --heatmap-size 96
@@ -154,6 +176,15 @@ def host_ms(torch, fn, iters: int = 100) -> float:
 
 PORT_KERNELS = ("render_gaussian_kernel", "pseudo_labels_kernel", "rotate3_fused_kernel",
                 "rotate3_u16_kernel")
+# kernel kinds, by the first kind whose marker a kernel's printed name
+# holds: the port's kernels, cuDNN's NCHW <-> NHWC conversions, batch norm,
+# convolutions and GEMMs (cuDNN, CUTLASS, cuBLAS), the multi-tensor
+# (foreach) SGD and EMA passes; "other" is the remaining elementwise and
+# reduction work
+KERNEL_KINDS = (("port", PORT_KERNELS), ("layout", ("nchwToNhwc", "nhwcToNchw")),
+                ("batch_norm", ("batch_norm", "bn_")),
+                ("convolution", ("xmma", "cutlass", "cudnn", "conv", "gemm", "dgrad", "wgrad")),
+                ("foreach", ("multi_tensor_apply",)))
 
 
 def ptxas_summary(log: str) -> dict[str, str]:
@@ -168,10 +199,10 @@ def ptxas_summary(log: str) -> dict[str, str]:
     return out
 
 
-def device_profile(torch, fn) -> dict:
+def device_profile(torch, fn, n_top: int = 6) -> dict:
     """One call of ``fn`` under ``torch.profiler``: device busy time (union
-    of kernel intervals), the call's wall time, the kernels by time, and the
-    device time of each of the port's own kernels."""
+    of kernel intervals), the call's wall time, the ``n_top`` kernels by time,
+    and the device time of each of the port's own kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from dahpe_tpu_torch.utils.profiling import device_busy_us
@@ -192,16 +223,20 @@ def device_profile(torch, fn) -> dict:
             # printed prefix add up instead of overwriting each other
             name = e.name[:60]
             by_name[name] = by_name.get(name, 0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
     ours = {k: sum(us for name, us in by_name.items() if k in name) / 1e3
             for k in PORT_KERNELS}
     counts = {k: sum(1 for e in prof.events()
                      if e.device_type == torch.autograd.DeviceType.CUDA and k in e.name)
               for k in PORT_KERNELS}
+    kinds = {}
+    for name, us in by_name.items():
+        kind = next((k for k, marks in KERNEL_KINDS if any(m in name for m in marks)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us / 1e3
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "idle_share": 1 - busy / wall_us, "kernels": kernels,
-            "top_ms": {name: us / 1e3 for name, us in top}, "port_kernels_ms": ours,
-            "port_kernel_launches": counts}
+            "top_ms": {name: us / 1e3 for name, us in top}, "by_kind_ms": kinds,
+            "port_kernels_ms": ours, "port_kernel_launches": counts}
 
 
 def phase_device(torch, build):
@@ -808,10 +843,12 @@ def phase_labels(torch, pseudo_label):
     return dict(top, ms=top["gf_only_ms"], bound_ms=top["gf_only_bound_ms"], max_abs_err=worst)
 
 
-def build_model(torch, models, seed: int = 7):
+def build_model(torch, models, seed: int = 7, dtype=None):
     """Full-width ResNet-101 multi-head model with fan-in-scaled random
-    weights and random BN stats (as ``tests/test_full_model_parity.py``)."""
-    model = models.MultiHeadPoseResNet(models.resnet101(), num_keypoints=JOINTS)
+    weights and random BN stats (as ``tests/test_full_model_parity.py``),
+    computing in ``dtype`` (None: float32)."""
+    model = models.MultiHeadPoseResNet(models.resnet101(dtype=dtype), num_keypoints=JOINTS,
+                                       dtype=dtype)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -1055,53 +1092,13 @@ def restore(torch, state, snap):
     state.step = snap["step"]
 
 
-def phase_training(torch, models, train, data, kernels, smi):
-    """The full-width DA iteration (and one pretrain step) on the card."""
-    import warnings
-
+def kernel_vs_plain(torch, train, model, state, stores, s_gen, t_gen, *, rtol, atol,
+                    loss_rtol) -> dict:
+    """One DA iteration from the same snapshot and draws through the kernels
+    and again through their plain versions, cuDNN deterministic: the batches
+    must be equal, the losses within ``loss_rtol`` and every weight within
+    ``rtol`` / ``atol``."""
     from dahpe_tpu_torch.ops import gaussian, pseudo_label, shear
-
-    t0 = time.perf_counter()
-    stores = [data.DeviceDataStore(SyntheticSplit(256, RAW, seed=seed), device="cuda",
-                                   raw_size=RAW, verbose=False) for seed in (2, 3)]
-    model = build_model(torch, models, seed=9).cuda()
-    state = train.create_da_state(model, device="cuda", with_ema=True)
-    fused = train.make_fused_da_iteration(model, stores[0], stores[1], BATCH,
-                                          share_target_features=True, ema_decay=0.99)
-    s_gen, t_gen = stores[0].generator(11), stores[1].generator(12)
-    setup_s = time.perf_counter() - t0
-
-    for _ in range(2):  # warm-up: cuDNN picks its algorithms
-        state, metrics, s_gen, t_gen = fused(state, s_gen, t_gen)
-    torch.cuda.synchronize()
-    iters = 5
-    kernels.reset()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        state, metrics, s_gen, t_gen = fused(state, s_gen, t_gen)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / iters
-    launches = kernels.read()
-    expected = dict(NO_LAUNCHES, render_gaussian=7, pseudo_labels=3, rotate3_fused=2)
-    if launches != {k: v * iters for k, v in expected.items()}:
-        raise AssertionError(f"training: launches {launches} for {iters} iterations, "
-                             f"expected {expected} each")
-    losses = {k: float(metrics[k]) for k in ("loss_s", "loss_gf", "loss_gt")}
-    if not all(np.isfinite(v) for v in losses.values()):
-        raise AssertionError(f"training: non-finite losses {losses}")
-
-    # host syncs in one iteration, as torch's sync debug mode reports them
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            state, metrics, s_gen, t_gen = fused(state, s_gen, t_gen)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = sorted({str(w.message).splitlines()[0][:120] for w in caught
-                    if "synchronizing CUDA operation" in str(w.message)})
-    profile = device_profile(torch, lambda: fused(state, s_gen, t_gen))
-    launches_all = kernels.read()
 
     # the same iteration through the plain label/rotation/Gaussian versions
     cudnn = torch.backends.cudnn.deterministic
@@ -1139,10 +1136,63 @@ def phase_training(torch, models, train, data, kernels, smi):
         big = pw[k].abs() > 1e-6
         if bool(big.any()):
             worst_rel = max(worst_rel, float((d[big] / pw[k].abs()[big]).max()))
-        if not torch.allclose(v, pw[k], rtol=1e-4, atol=1e-7):
+        if not torch.allclose(v, pw[k], rtol=rtol, atol=atol):
             raise AssertionError(f"training: {k} differs between kernel and plain runs")
-    if not loss_rel <= 1e-4:
+    if not loss_rel <= loss_rtol:
         raise AssertionError(f"training: losses differ by {loss_rel} between kernel and plain")
+
+    return {"batches_equal": True, "loss_max_rel": loss_rel, "weights_max_abs": worst_abs,
+            "weights_max_rel": worst_rel, "rtol": rtol, "atol": atol, "loss_rtol": loss_rtol}
+
+
+def phase_training(torch, models, train, data, kernels, smi):
+    """The full-width DA iteration (and one pretrain step) on the card."""
+    import warnings
+
+    t0 = time.perf_counter()
+    stores = [data.DeviceDataStore(SyntheticSplit(256, RAW, seed=seed), device="cuda",
+                                   raw_size=RAW, verbose=False) for seed in (2, 3)]
+    model = build_model(torch, models, seed=9).cuda()
+    state = train.create_da_state(model, device="cuda", with_ema=True)
+    fused = train.make_fused_da_iteration(model, stores[0], stores[1], BATCH,
+                                          share_target_features=True, ema_decay=0.99)
+    s_gen, t_gen = stores[0].generator(11), stores[1].generator(12)
+    setup_s = time.perf_counter() - t0
+
+    for _ in range(2):  # warm-up: cuDNN picks its algorithms
+        state, metrics = fused(state, s_gen, t_gen)[:2]
+    torch.cuda.synchronize()
+    iters = 5
+    kernels.reset()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = fused(state, s_gen, t_gen)[:2]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / iters
+    launches = kernels.read()
+    expected = dict(NO_LAUNCHES, render_gaussian=7, pseudo_labels=3, rotate3_fused=2)
+    if launches != {k: v * iters for k, v in expected.items()}:
+        raise AssertionError(f"training: launches {launches} for {iters} iterations, "
+                             f"expected {expected} each")
+    losses = {k: float(metrics[k]) for k in ("loss_s", "loss_gf", "loss_gt")}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"training: non-finite losses {losses}")
+
+    # host syncs in one iteration, as torch's sync debug mode reports them
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, metrics = fused(state, s_gen, t_gen)[:2]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sorted({str(w.message).splitlines()[0][:120] for w in caught
+                    if "synchronizing CUDA operation" in str(w.message)})
+    profile = device_profile(torch, lambda: fused(state, s_gen, t_gen))
+    launches_all = kernels.read()
+
+    agreement = kernel_vs_plain(torch, train, model, state, stores, s_gen, t_gen,
+                                rtol=1e-4, atol=1e-7, loss_rtol=1e-4)
 
     flops = flops_per_da_iteration(torch, models, BATCH)
     if "device_busy_ms" in profile:
@@ -1156,9 +1206,7 @@ def phase_training(torch, models, train, data, kernels, smi):
         "launches_per_iter": {k: v // iters for k, v in launches.items() if v},
         "host_syncs": syncs, "profile": profile,
         "est_flop_per_iter": flops, "est_flop_per_s": flops / (ms / 1e3),
-        "kernel_vs_plain": {"batches_equal": True, "loss_max_rel": loss_rel,
-                            "weights_max_abs": worst_abs, "weights_max_rel": worst_rel,
-                            "rtol": 1e-4, "atol": 1e-7},
+        "kernel_vs_plain": agreement,
     })
 
     # the supervised pretrain path (PoseResNet) from the same store
@@ -1207,12 +1255,12 @@ def phase_training_96(torch, models, train, data, kernels, smi):
                                           share_target_features=True, ema_decay=0.99)
     s_gen, t_gen = stores[0].generator(21), stores[1].generator(22)
     torch.cuda.reset_peak_memory_stats()
-    state, metrics, s_gen, t_gen = fused(state, s_gen, t_gen)  # warm-up: cuDNN's algorithms
+    state, metrics = fused(state, s_gen, t_gen)[:2]  # warm-up: cuDNN's algorithms
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     kernels.reset()
     t0 = time.perf_counter()
-    state, metrics, s_gen, t_gen = fused(state, s_gen, t_gen)
+    state, metrics = fused(state, s_gen, t_gen)[:2]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = kernels.read()
@@ -1260,7 +1308,7 @@ def phase_checkpoint(torch, trained, root):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            state, _, _, _ = fused(state, s_gen, t_gen)
+            state = fused(state, s_gen, t_gen)[0]
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
@@ -1882,37 +1930,50 @@ def phase_graphs(torch, models, train, data, smi):
         "pretrain_batch_32": pre})
 
 
-def phase_cli_chunked(torch, kernels, smi, cli):
+def phase_cli_chunked(torch, kernels, smi, cli, bf16: bool = False):
     """Phase 8b: the training CLI at phase 6's configuration with
     ``--steps-per-call 4``: ``--max-steps 4`` then ``--resume`` to 8 against
     a straight run to 8 (whose second chunk is a replay), cuDNN
-    deterministic; the launches the runs imply."""
+    deterministic; the launches the runs imply. With ``bf16`` (phase 9d)
+    the runs take ``--bf16``, the resume must be bit for bit, and
+    ``cli.test --bf16`` on the straight run's ``best`` must score the PCK
+    the run logged (8 iterations leave it at 0, so this holds the CLI path,
+    not bfloat16 evaluation, which phase 9e holds); then phase 6's pretrain
+    checkpoint and decoded cache are deleted."""
+    from dahpe_tpu_torch.cli import test as test_cli
     from dahpe_tpu_torch.cli import train as train_cli
     from dahpe_tpu_torch.cli.args import build_parser
     from dahpe_tpu_torch.utils import checkpoint as ckpt
     from dahpe_tpu_torch.utils import fast_ckpt
 
     argv, root = cli["argv"], cli["root"]
+    tag = "bf16_" if bf16 else ""
     common = ("--pretrain", cli["pretrain"], "--epochs", "2", "-i", str(GRAPH_K),
-              "--steps-per-call", str(GRAPH_K))
+              "--steps-per-call", str(GRAPH_K), *(("--bf16",) if bf16 else ()))
     seconds = {}
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         for name, extra in (("cut", ("--max-steps", str(GRAPH_K))),
                             ("resumed", ("--max-steps", str(2 * GRAPH_K), "--resume",
-                                         os.path.join(root, "chunk_cut", "checkpoints",
+                                         os.path.join(root, tag + "chunk_cut", "checkpoints",
                                                       "latest"))),
                             ("straight", ("--max-steps", str(2 * GRAPH_K)))):
             t0 = time.perf_counter()
-            log = "chunk_straight" if name == "straight" else "chunk_cut"
+            log = tag + ("chunk_straight" if name == "straight" else "chunk_cut")
             train_cli.main(build_parser("train").parse_args(argv(log, *common, *extra)))
             torch.cuda.synchronize()
             seconds[name] = time.perf_counter() - t0
+        if bf16:
+            t0 = time.perf_counter()
+            scores = test_cli.main(build_parser("test").parse_args(argv(
+                tag + "test", "--bf16", "--checkpoint",
+                os.path.join(root, tag + "chunk_straight", "checkpoints", "best"))))
+            seconds["cli_test_best"] = time.perf_counter() - t0
     finally:
         torch.backends.cudnn.deterministic = deterministic
     launches = kernels.read()
-    latest = [os.path.join(root, log, "checkpoints", "latest")
+    latest = [os.path.join(root, tag + log, "checkpoints", "latest")
               for log in ("chunk_cut", "chunk_straight")]
     resumed, direct = (fast_ckpt.flatten_tree(fast_ckpt.load_packed_tree(p)) for p in latest)
     if ([p for p, _ in resumed] != [p for p, _ in direct]
@@ -1924,29 +1985,43 @@ def phase_cli_chunked(torch, kernels, smi, cli):
             unequal += 1
             if x.is_floating_point():
                 worst = max(worst, float((x - y).abs().max()))
-            if not torch.allclose(x.double(), y.double(), rtol=1e-4, atol=1e-6):
+            if bf16 or not torch.allclose(x.double(), y.double(), rtol=1e-4, atol=1e-6):
                 raise AssertionError(f"chunked resume: {'/'.join(path)} differs from the "
                                      "straight run")
+    floats = [x for _, x in resumed if x.is_floating_point()]
+    if not all(x.dtype == torch.float32 and bool(torch.isfinite(x).all()) for x in floats):
+        raise AssertionError("chunked resume: a saved tensor is not finite float32")
     aux = [ckpt.load_aux(p) for p in latest]
     if not all(np.array_equal(aux[0][k], aux[1][k]) for k in ("key_s", "key_t")):
         raise AssertionError("chunked resume: the sampling generators did not continue")
     # wrapper launches: every eager iteration (the cut and resumed runs' one
     # chunk each, the straight run's first) and the one capture, 7/3/2 each;
     # one Gaussian per eval batch of the straight run's epoch-0 validation
-    # (source, target, EMA)
+    # (source, target, EMA), and with bf16 cli.test's (source, target)
     iterations = 3 * GRAPH_K + 1
-    expected = dict(NO_LAUNCHES, render_gaussian=7 * iterations + 3 * cli["val_batches"],
+    eval_batches = (3 + (2 if bf16 else 0)) * cli["val_batches"]
+    expected = dict(NO_LAUNCHES, render_gaussian=7 * iterations + eval_batches,
                     pseudo_labels=3 * iterations, rotate3_fused=2 * iterations)
     if launches != expected:
         raise AssertionError(f"chunked cli: launches {launches}, expected {expected}")
-    records = [json.loads(r) for r in open(os.path.join(root, "chunk_straight",
+    records = [json.loads(r) for r in open(os.path.join(root, tag + "chunk_straight",
                                                         "metrics.jsonl"))]
+    extra = {}
+    if bf16:
+        best = max(r["best_target"] for r in records)
+        if abs(scores["target"]["all"] - best) > 1e-6:
+            raise AssertionError(f"cli.test --bf16 on best: PCK {scores['target']['all']} "
+                                 f"!= logged {best}")
+        extra["cli_test_best"] = {"target": scores["target"]["all"], "logged": best}
     for name in os.listdir(root):
         shutil.rmtree(os.path.join(root, name, "checkpoints"), ignore_errors=True)
-    for name in ("cache", "phase8_pretrain"):
-        shutil.rmtree(os.path.join(root, name), ignore_errors=True)
-    line(f"phase 8b training CLI --steps-per-call {GRAPH_K} resnet101 256²/64², batch 32", {
-        "card": smi, "run_s": seconds, "straight_epoch0": {
+    if bf16:  # the last run on phase 6's warm start and cache
+        for name in ("cache", "phase8_pretrain"):
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+    title = (f"phase 9d training CLI --bf16 --steps-per-call {GRAPH_K}" if bf16
+             else f"phase 8b training CLI --steps-per-call {GRAPH_K}")
+    line(f"{title} resnet101 256²/64², batch 32", {
+        "card": smi, "run_s": seconds, **extra, "straight_epoch0": {
             k: records[0][k] for k in ("loss_s", "loss_gf", "loss_gt", "val_target_ema")},
         "resume": {"steps": [GRAPH_K, 2 * GRAPH_K], "leaves": len(resumed),
                    "unequal_leaves": unequal, "max_abs_diff": worst,
@@ -1956,28 +2031,272 @@ def phase_cli_chunked(torch, kernels, smi, cli):
     return launches
 
 
-def phase_adaptation(torch, smi):
+def bf16_eval_against_float32(torch, result: dict, calls: list) -> dict:
+    """Phase 9e's check of bfloat16 evaluation where the PCK is far from 0:
+    the trained bfloat16 DA model's target PCK (the result's ``da``) against
+    a float32 twin of the same weights on the same split. ``calls`` are the
+    experiment's evaluations in order (pretrain source and target, control,
+    the DA curve, the EMA twin), each ``(model, args, kwargs, pck)``.
+    Rounding the activations and weights to bfloat16 moves a joint's
+    argmax only where its heatmap nearly ties, so the two PCKs stay within
+    ``BF16_EVAL_PCK_TOL``; a decode that fails on bfloat16 maps (no peaks,
+    wrong axes or scale) moves the PCK by most of its value."""
+    from dahpe_tpu_torch import models
+    from dahpe_tpu_torch.evaluate import make_eval_step
+    from dahpe_tpu_torch.experiments import adaptation
+
+    model, args, kw, pck16 = calls[-2]
+    if pck16 != result["da"] or calls[-1][3] != result["da_ema"]:
+        raise AssertionError("adaptation --bf16: the DA model's evaluation was not found")
+    twin = models.MultiHeadPoseResNet(models.get_backbone("resnet18"),
+                                      num_keypoints=JOINTS).cuda()
+    twin.load_state_dict(model.state_dict())
+    pck32 = adaptation._eval_target(twin, *args,
+                                    **{**kw, "eval_step": make_eval_step(twin, device="cuda")})
+    if not abs(pck16 - pck32) <= BF16_EVAL_PCK_TOL:
+        raise AssertionError(f"adaptation --bf16: target PCK {pck16} in bfloat16, {pck32} "
+                             f"in float32 on the same weights")
+    return {"target_pck_bf16": pck16, "target_pck_float32_same_weights": pck32,
+            "abs_diff": abs(pck16 - pck32), "tolerance": BF16_EVAL_PCK_TOL}
+
+
+def phase_adaptation(torch, smi, bf16: bool = False):
     """Phase 8c: the adaptation experiment at its acceptance configuration
     (resnet18 at 128²/32², shift 0.3, content 0.3, style 1.0, EMA 0.99,
     confidence gate 0.5, seed 0), cut to ``ADAPT_ITERS`` + ``ADAPT_ITERS``
-    iterations; every number it returns must be finite."""
-    from dahpe_tpu_torch.experiments import run_adaptation_experiment
+    iterations; every number it returns must be finite. With ``bf16``
+    (phase 9e) it computes in bfloat16, and the trained DA model's
+    evaluation is held against float32 (:func:`bf16_eval_against_float32`)."""
+    from dahpe_tpu_torch.experiments import adaptation, run_adaptation_experiment
 
     t0 = time.perf_counter()
-    result = run_adaptation_experiment(
-        arch="resnet18", pre_iters=ADAPT_ITERS, da_iters=ADAPT_ITERS, batch=32, n_train=512,
-        image_size=128, heatmap_size=32, raw_size=160, shift=0.3, content=0.3, style=1.0,
-        ema_decay=0.99, conf_gate=0.5, eval_every=100, seed=0, verbose=False)
+    calls, real_eval = [], adaptation._eval_target
+
+    def recorded(model, *args, **kw):
+        pck = real_eval(model, *args, **kw)
+        calls.append((model, args, kw, pck))
+        return pck
+
+    adaptation._eval_target = recorded
+    try:
+        result = run_adaptation_experiment(
+            arch="resnet18", pre_iters=ADAPT_ITERS, da_iters=ADAPT_ITERS, batch=32,
+            n_train=512, image_size=128, heatmap_size=32, raw_size=160, shift=0.3,
+            content=0.3, style=1.0, ema_decay=0.99, conf_gate=0.5, eval_every=100, seed=0,
+            bf16=bf16, verbose=False)
+    finally:
+        adaptation._eval_target = real_eval
     seconds = time.perf_counter() - t0
     numbers = [v for v in result.values() if isinstance(v, float)]
     numbers += [p for _, p in result["curve"]]
     if not all(np.isfinite(v) for v in numbers):
         raise AssertionError(f"adaptation: non-finite result {result}")
-    line(f"phase 8c adaptation resnet18 128²/32², {ADAPT_ITERS}+{ADAPT_ITERS} iterations, seed 0",
+    extra = {"bf16_eval_vs_float32": bf16_eval_against_float32(torch, result, calls)} if bf16 \
+        else {}
+    title = "phase 9e adaptation --bf16" if bf16 else "phase 8c adaptation"
+    line(f"{title} resnet18 128²/32², {ADAPT_ITERS}+{ADAPT_ITERS} iterations, seed 0",
          {"card": smi, "seconds": seconds, "cut": {"pre_iters": ADAPT_ITERS,
                                                    "da_iters": ADAPT_ITERS,
                                                    "acceptance": [4000, 3000]},
-          "result": result})
+          "result": result, **extra})
+
+
+def bf16_step_checks(torch, model, state, single, kernels, iters: int = 4) -> dict:
+    """``iters`` eager bfloat16 DA iterations: 7 / 3 / 2 path-kernel launches
+    each, every float32 parameter moved and finite, the BN statistics and
+    EMA finite, the metrics finite; then the model's heatmaps are bfloat16."""
+    before = [p.detach().clone() for p in model.parameters()]
+    kernels.reset()
+    for _ in range(iters):
+        metrics = single()
+    torch.cuda.synchronize()
+    launches = kernels.read()
+    expected = dict(NO_LAUNCHES, render_gaussian=7, pseudo_labels=3, rotate3_fused=2)
+    if launches != {k: v * iters for k, v in expected.items()}:
+        raise AssertionError(f"bf16 training: launches {launches} for {iters} iterations, "
+                             f"expected {expected} each")
+    params = list(model.parameters())
+    if not all(p.dtype == torch.float32 for p in params):
+        raise AssertionError("bf16 training: a parameter is not float32")
+    moved = sum(int(not torch.equal(p, b)) for p, b in zip(params, before))
+    if moved != len(params):
+        raise AssertionError(f"bf16 training: {len(params) - moved} parameters did not move")
+    tensors = params + list(model.buffers()) + list((state.ema or {}).values())
+    if not all(bool(torch.isfinite(t).all()) for t in tensors if t.is_floating_point()):
+        raise AssertionError("bf16 training: a parameter, statistic or EMA entry is not finite")
+    losses = {k: float(metrics[k]) for k in ("loss_s", "loss_gf", "loss_gt")}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"bf16 training: non-finite losses {losses}")
+    with torch.no_grad():
+        model.eval()
+        out = model(torch.zeros(2, IMAGE, IMAGE, 3, device=params[0].device))
+        model.train()
+    dtypes = {k: str(v.dtype).split(".")[-1] for k, v in out.items()}
+    if set(dtypes.values()) != {"bfloat16"}:
+        raise AssertionError(f"bf16 training: outputs {dtypes}")
+    return {"launches_per_iter": {k: v // iters for k, v in launches.items() if v},
+            "parameters_moved": f"{moved}/{len(params)}", "losses": losses,
+            "output_dtypes": dtypes, "all_finite": True}
+
+
+def phase_bf16_training(torch, models, train, data, kernels, smi):
+    """Phase 9a/9b: the DA and pretrain iterations with bfloat16 compute at
+    phase 5's configuration (module docstring)."""
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    stores = [data.DeviceDataStore(SyntheticSplit(256, RAW, seed=seed), device="cuda",
+                                   raw_size=RAW, verbose=False) for seed in (2, 3)]
+    model = build_model(torch, models, seed=9, dtype=bf16).cuda()
+    state = train.create_da_state(model, device="cuda", with_ema=True)
+    gens = [stores[0].generator(11), stores[1].generator(12)]
+
+    def da_call(k):
+        fused = train.make_fused_da_iteration(model, stores[0], stores[1], BATCH,
+                                              steps_per_call=k, share_target_features=True,
+                                              ema_decay=0.99)
+        return lambda: fused(state, *gens)[1]
+
+    single = da_call(1)
+    for _ in range(2):  # warm-up: cuDNN picks its algorithms
+        single()
+    checks = bf16_step_checks(torch, model, state, single, kernels)
+    agreement = kernel_vs_plain(torch, train, model, state, stores, *gens, rtol=1e-4,
+                                atol=1e-7, loss_rtol=1e-4)
+    profile = device_profile(torch, single, n_top=12)
+    # what bf16 adds in front of the label kernel: the fused target's cast
+    # to float32 (ops/pseudo_label.py), one elementwise pass per Step B build
+    casts = {}
+    for size in (HEATMAP, HEATMAP // 2):
+        t = torch.randn(BATCH, size, size, JOINTS, device="cuda").to(torch.bfloat16)
+        casts[f"{size}²"] = {"ms": cuda_ms(torch, lambda t=t: t.to(torch.float32).contiguous()),
+                             "bound_ms": t.numel() * 6 / HBM_BYTES_PER_S * 1e3}
+    flops = flops_per_da_iteration(torch, models, BATCH)
+    if "device_busy_ms" in profile:
+        rate = flops / (profile["device_busy_ms"] / 1e3)
+        profile.update(est_flop_per_iter=flops, est_flop_per_s_busy=rate,
+                       est_share_of_bf16_dense_peak=rate / BF16_OPS_PER_S)
+    graphs = graph_check(torch, da_call, state, gens, 2 * BATCH)
+    if graphs["eager_vs_eager"]["bit_equal"] and not graphs["replay_vs_eager"]["bit_equal"]:
+        raise AssertionError(f"bf16 graphs: two eager runs agree bit for bit, the replay not: "
+                             f"{graphs['replay_vs_eager']}")
+    line("phase 9a DA training --bf16 resnet101 256²/64²/21, batch 32+32, 288² stores", {
+        "card": smi, "seconds": time.perf_counter() - t0, **checks,
+        "kernel_vs_plain": agreement, "fused_target_cast": casts, "profile_k1_eager": profile,
+        "graphs": graphs})
+    del model, state, single, da_call
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pose = models.PoseResNet(models.resnet101(dtype=bf16), num_keypoints=JOINTS,
+                             dtype=bf16).cuda()
+    pstate = train.create_pretrain_state(pose, device="cuda")
+    p_gens = [stores[0].generator(13)]
+
+    def pre_call(k):
+        fused = train.make_fused_pretrain_iteration(pose, stores[0], BATCH, steps_per_call=k)
+        return lambda: fused(pstate, p_gens[0], 0.001)[1]
+
+    pre = graph_check(torch, pre_call, pstate, p_gens, BATCH)
+    if pre["eager_vs_eager"]["bit_equal"] and not pre["replay_vs_eager"]["bit_equal"]:
+        raise AssertionError(f"bf16 pretrain graphs: the replay differs from eager execution: "
+                             f"{pre['replay_vs_eager']}")
+    if not all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+               for p in pose.parameters()):
+        raise AssertionError("bf16 pretrain: a parameter is not finite float32")
+    line("phase 9b pretrain --bf16 resnet101, batch 32", {
+        "card": smi, "seconds": time.perf_counter() - t0, "graphs": pre})
+
+
+def phase_bf16_serving(torch, models, evaluate, smi):
+    """Phase 9c: phase 3's model exported by ``cli.export --bf16
+    --uint8-input`` and served in process and over HTTP (module
+    docstring)."""
+    import threading
+
+    from dahpe_tpu_torch import serving
+    from dahpe_tpu_torch.cli import export as export_cli
+    from dahpe_tpu_torch.cli import serve
+    from dahpe_tpu_torch.client import PoseClient
+    from dahpe_tpu_torch.data.device_aug import IMAGENET_MEAN, IMAGENET_STD
+    from dahpe_tpu_torch.utils import checkpoint as ckpt
+    from dahpe_tpu_torch.utils import fast_ckpt
+
+    t0 = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_bf16")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.reset_peak_memory_stats()
+    model32 = build_model(torch, models).cuda()  # phase 3's weights (same seed)
+    checkpoint, out = os.path.join(root, "phase3_model"), os.path.join(root, "bf16.pt2")
+    fast_ckpt.save_packed(checkpoint, ckpt.model_tree(model32))
+    t1 = time.perf_counter()
+    export_cli.main(export_cli.build_export_parser().parse_args(
+        [checkpoint, "-o", out, "-a", "resnet101", "--device", "cuda", "--image-size",
+         str(IMAGE), "--heatmap-size", str(HEATMAP), "--uint8-input", "--bf16"]))
+    export_s = time.perf_counter() - t1
+    weights = serving.load_artifact_weights(out + ".weights.npz")
+    if not all(v.dtype == torch.float32 for v in weights.values() if v.is_floating_point()):
+        raise AssertionError("bf16 artifact: its weights are not float32")
+    model16 = build_model(torch, models, dtype=torch.bfloat16).cuda()
+    mean = torch.as_tensor(IMAGENET_MEAN, device="cuda")
+    std = torch.as_tensor(IMAGENET_STD, device="cuda")
+    kw = dict(image_size=IMAGE, heatmap_size=HEATMAP, uint8_input=True, device="cuda")
+    predict16 = evaluate.make_predict_fn(model16, **kw)
+    predict32 = evaluate.make_predict_fn(model32, **kw)
+    rng = np.random.default_rng(90)
+    requests = {n: (rng.integers(0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8), reps)
+                for n, reps in ((1, 30), (8, 20), (32, 10))}
+    in_process = {n: {"eager_ms": host_ms(torch, lambda f=f: [t.cpu() for t in predict16(f)],
+                                          reps)} for n, (f, reps) in requests.items()}
+    server = serve.create_server(serve.build_serve_parser().parse_args(
+        [out, "--host", "127.0.0.1", "--port", "0", "--batch-window", "2",
+         "--device", "cuda"]))  # sets cuDNN deterministic, as phase 7's do
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    checked = {}
+    try:
+        with PoseClient("127.0.0.1", server.server_address[1], timeout=120) as client:
+            timing = _timed_requests(client, requests)
+            http = {n: client.predict(f) for n, (f, _) in requests.items()}
+        servable = server.servable
+        for n, (frames, reps) in requests.items():
+            in_process[n]["dispatch_ms"] = host_ms(torch, lambda f=frames: servable.run_arrays(f),
+                                                   reps)
+            coords16, _ = predict16(frames)
+            if not np.array_equal(http[n][0], coords16.cpu().numpy()):
+                raise AssertionError(f"bf16 artifact at {n} frames: coordinates differ from "
+                                     "the bfloat16 eager predict")
+            # against float32: equal wherever the float32 top-2 gap exceeds
+            # twice the bfloat16 heatmap's largest deviation from it
+            coords32, _ = predict32(frames)
+            with torch.no_grad():
+                xs = (torch.from_numpy(frames).cuda().float() / 255.0 - mean) / std
+                y32 = model32.main_head(model32.features(xs)).reshape(n, -1, JOINTS)
+                y16 = model16.main_head(model16.features(xs)).float().reshape(n, -1, JOINTS)
+            dev = (y16 - y32).abs().amax(dim=1)
+            top2 = y32.topk(2, dim=1).values
+            sure = ((top2[:, 0] - top2[:, 1]) > 2 * dev).cpu()
+            c16, c32 = torch.from_numpy(http[n][0]), coords32.cpu()
+            if not torch.equal(c16[sure], c32[sure]):
+                raise AssertionError(f"bf16 artifact at {n} frames: coordinates differ from "
+                                     "float32 where bfloat16 cannot move the argmax")
+            dist = (c16 - c32).norm(dim=-1)
+            checked[n] = {"equal_bf16_eager": True, "joints": int(sure.numel()),
+                          "sure_joints_equal_float32": int(sure.sum()),
+                          "px_from_float32_mean": float(dist.mean()),
+                          "px_from_float32_max": float(dist.max()),
+                          "heatmap_max_dev_from_float32": float(dev.max())}
+        graphs = servable.info()["graphs"]
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        torch.backends.cudnn.deterministic = False
+    shutil.rmtree(root, ignore_errors=True)
+    line("phase 9c serving --bf16 artifact resnet101 256²/64²/21", {
+        "card": smi, "seconds": time.perf_counter() - t0, "cli_export_s": export_s,
+        "requests_http": timing, "in_process": in_process, "checks": checked,
+        "graphs_captured": graphs, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
 
 
 def main() -> int:
@@ -2054,6 +2373,30 @@ def main() -> int:
         if name in PATH_KERNELS and count == 0:
             raise AssertionError(f"{name} kernel never launched on the adaptation path")
         launches[name] += count
+    torch.cuda.empty_cache()
+
+    # phase 9: the bfloat16 compute dtype on each path
+    t9 = time.perf_counter()
+    kernels.reset()  # main path 8: the bf16 DA and pretrain iterations
+    phase_bf16_training(torch, models, train, data, kernels, smi)
+    for name, count in kernels.read().items():
+        if name in PATH_KERNELS and count == 0:
+            raise AssertionError(f"{name} kernel never launched on the bf16 training path")
+        launches[name] += count
+    torch.cuda.empty_cache()
+    phase_bf16_serving(torch, models, evaluate, smi)  # no path kernel: frames in, no targets
+    torch.cuda.empty_cache()
+    kernels.reset()  # main path 9: the training CLI with --bf16 --steps-per-call
+    for name, count in phase_cli_chunked(torch, kernels, smi, cli_best, bf16=True).items():
+        launches[name] += count
+    torch.cuda.empty_cache()
+    kernels.reset()  # main path 10: the adaptation experiment in bf16
+    phase_adaptation(torch, smi, bf16=True)
+    for name, count in kernels.read().items():
+        if name in PATH_KERNELS and count == 0:
+            raise AssertionError(f"{name} kernel never launched on the bf16 adaptation path")
+        launches[name] += count
+    line("phase 9 bf16", {"card": smi, "phase_9_s": time.perf_counter() - t9})
 
     sources = {
         "render_gaussian": ("render_gaussian.cu", "dahpe_tpu/ops/pallas/gaussian.py:45"),

@@ -59,7 +59,9 @@ def build_parser(phase: str = "train") -> argparse.ArgumentParser:
                         help="torch device of the run (default: the card); "
                              "'cpu' runs on the CPU")
     parser.add_argument("--debug", action="store_true",
-                        help="skeleton visualisations (cv2); not ported yet")
+                        help="draw predicted skeletons of the printed train "
+                             "batches and the target validation into "
+                             "{log}/visualize (cv2)")
     parser.add_argument("--profile", default=0, type=int, metavar="N",
                         help="capture a torch.profiler trace of N "
                              "steady-state DA iterations (written under "
@@ -95,7 +97,8 @@ def build_parser(phase: str = "train") -> argparse.ArgumentParser:
                              "(the reference creates it but leaves the update "
                              "commented out, train1.py:461)")
     parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 compute dtype; not ported yet")
+                        help="bfloat16 compute dtype (parameters, BN statistics "
+                             "and labels stay float32)")
     parser.add_argument("--multihost", action="store_true",
                         help="multi-process data parallelism; not ported yet")
     parser.add_argument("--device-store", action="store_true",

@@ -1,4 +1,5 @@
-"""Shared CLI plumbing: flag checks, model and dataset construction, loaders.
+"""Shared CLI plumbing: flag checks, model and dataset construction, loaders,
+the ``--debug`` visualiser.
 
 Port of ``dahpe_tpu/cli/common.py``. One process drives one device
 (``--device``); the JAX package's compile cache has no counterpart.
@@ -9,6 +10,7 @@ from __future__ import annotations
 import hashlib
 import os
 
+import numpy as np
 import torch
 
 from dahpe_tpu_torch import models
@@ -21,9 +23,6 @@ _UNPORTED = {
                  "(ROADMAP.md queue 1 item 8)",
     "multihost": "--multihost (multi-process data parallelism) is not ported yet "
                  "(ROADMAP.md queue 1 item 11)",
-    "bf16": "--bf16 (bfloat16 compute) is not ported yet (ROADMAP.md queue 1 item 9)",
-    "debug": "--debug (cv2 skeleton visualisations) is not ported yet "
-             "(ROADMAP.md queue 1 item 9)",
 }
 
 
@@ -43,8 +42,9 @@ def validate_steps_per_call(args) -> int:
     reports, the stop poll, ``--save-every`` checkpoints, ``--max-steps``)
     can only land on a multiple of K: it needs ``--device-store`` (the
     host-fed paths need a host round trip per step) and cadences that are
-    multiples of K, as in the JAX package. A K below 1 is rejected (the JAX
-    package coerces it to 1)."""
+    multiples of K, as in the JAX package; ``--debug`` draws the batches of
+    every printed step on the host, so it runs one step a call. A K below 1
+    is rejected (the JAX package coerces it to 1)."""
     k = int(args.steps_per_call)
     if k < 1:
         raise SystemExit(f"--steps-per-call {k}: K must be at least 1")
@@ -54,6 +54,10 @@ def validate_steps_per_call(args) -> int:
         raise SystemExit(
             f"--steps-per-call {k} needs --device-store: only the fused iteration "
             "runs steps without a host round trip per step")
+    if getattr(args, "debug", False):
+        raise SystemExit(
+            f"--steps-per-call {k} runs without --debug: the debug drawings need "
+            "each printed step's batches on the host")
     bad = [f"{name}={value}" for name, value in (
         ("--iters-per-epoch", args.iters_per_epoch),
         ("--print-freq", args.print_freq),
@@ -69,14 +73,16 @@ def validate_steps_per_call(args) -> int:
 
 def build_model(args, multi_head: bool = True) -> torch.nn.Module:
     """The ``-a`` backbone under the multi-head DA model (or the pretrain
-    ``PoseResNet``), its initial weights drawn from ``torch.manual_seed(
+    ``PoseResNet``), computing in bfloat16 with ``--bf16`` (float32
+    parameters), its initial weights drawn from ``torch.manual_seed(
     args.seed)``, on the CPU (the train states move it to ``--device``)."""
     torch.manual_seed(args.seed)
-    backbone = models.get_backbone(args.arch)
+    dtype = torch.bfloat16 if args.bf16 else None
+    backbone = models.get_backbone(args.arch, dtype=dtype)
     if multi_head:
         return models.MultiHeadPoseResNet(backbone, num_keypoints=21,
-                                          num_head_layers=args.num_head_layers)
-    return models.PoseResNet(backbone, num_keypoints=21)
+                                          num_head_layers=args.num_head_layers, dtype=dtype)
+    return models.PoseResNet(backbone, num_keypoints=21, dtype=dtype)
 
 
 def build_datasets(args, *, val_only: bool = False):
@@ -162,3 +168,16 @@ def build_loaders(args, train_source, val_source, train_target, val_target, *,
         build_train_loader(args, train_target, seed_offset=1, mode=mode),
         build_val_loader(args, val_target),
     )
+
+
+def make_visualizer(dataset, logger):
+    """``visualize(image, keypoints, name)`` for ``--debug``: the normalized
+    ``(H, W, 3)`` image back to uint8 RGB, the skeleton of ``keypoints``
+    (image pixels) drawn by ``dataset.visualize`` into the run's
+    ``visualize/`` directory as ``{name}.jpg``."""
+
+    def visualize(image, keypoint2d, name):
+        img = (T.denormalize(np.asarray(image)) * 255).astype(np.uint8)
+        dataset.visualize(img, keypoint2d, logger.get_image_path(f"{name}.jpg"))
+
+    return visualize

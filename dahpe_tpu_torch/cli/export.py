@@ -7,8 +7,11 @@ reference torch ``.pth``) and exports the fused forward-plus-decode serving
 program (images → image-space keypoints + confidences) with
 :mod:`dahpe_tpu_torch.serving`, beside its weights as ``<output>.weights.npz``.
 ``--int8`` exports the post-training-quantized program
-(:mod:`dahpe_tpu_torch.quant`) instead. The artifact runs on the device it
-was exported on (``--device``, default ``cuda``).
+(:mod:`dahpe_tpu_torch.quant`) instead. ``--bf16`` exports a float program
+that computes in bfloat16 (its weights stay float32; ``--int8`` quantizes
+the float32 weights whatever the flag, as the JAX package does). The
+artifact runs on the device it was exported on (``--device``, default
+``cuda``).
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ def build_export_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device the artifact runs on (default: the card)")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute dtype; not ported yet")
+                   help="bfloat16 compute dtype (weights stay float32; the casts "
+                        "are part of the exported program); --int8 ignores it")
     p.add_argument("--uint8-input", action="store_true",
                    help="artifact ingests raw uint8 HWC frames and normalizes on "
                         "the device (4x fewer bytes per frame than a float32 feed)")
@@ -91,12 +95,11 @@ def _calibration_images(args, device) -> torch.Tensor:
 
 def main(args) -> str:
     """Export ``args.checkpoint``; returns the artifact path."""
-    if args.bf16:
-        raise SystemExit("--bf16 (bfloat16 compute) is not ported yet "
-                         "(ROADMAP.md queue 1 item 9)")
     device = resolve_device(args.device)
-    model = models.MultiHeadPoseResNet(models.get_backbone(args.arch), num_keypoints=21,
-                                       num_head_layers=args.num_head_layers)
+    dtype = torch.bfloat16 if args.bf16 else None
+    model = models.MultiHeadPoseResNet(models.get_backbone(args.arch, dtype=dtype),
+                                       num_keypoints=21,
+                                       num_head_layers=args.num_head_layers, dtype=dtype)
     if args.checkpoint.endswith(".pth"):
         ckpt.load_reference_pth(args.checkpoint, model, strict=True)
     else:
@@ -119,7 +122,7 @@ def main(args) -> str:
         serving.save_predict(args.output, model, **geometry)
         serving.save_variables_npz(weights, model)
     b = args.batch_size if args.batch_size is not None else "polymorphic"
-    kind = " int8" if args.int8 else ""
+    kind = " int8" if args.int8 else " bf16" if args.bf16 else ""
     print(f"exported {args.arch}@{args.image_size}{kind} (batch {b}, {device}) "
           f"-> {args.output} ({os.path.getsize(args.output)} bytes) "
           f"+ {weights} ({os.path.getsize(weights)} bytes)")

@@ -189,14 +189,14 @@ class _Servable:
         ``(coords, maxvals)``."""
         if self.device.type != "cuda":
             coords, maxvals = self.predict(self.weights, torch.from_numpy(frames))
-            return coords.numpy(), maxvals.numpy()
+            return coords.numpy(), maxvals.float().numpy()
         with torch.cuda.device(self.device):
             g = self._graphs.get(frames.shape[0]) or self._capture(frames.shape[0])
             g.frames.copy_(torch.from_numpy(frames))
             g.graph.replay()
             # copied out before the lock is released: the next replay of any
             # graph of the shared pool may reuse this memory
-            return g.coords.cpu().numpy(), g.maxvals.cpu().numpy()
+            return g.coords.cpu().numpy(), g.maxvals.cpu().float().numpy()
 
     def run_arrays(self, frames: np.ndarray):
         """One device dispatch: pad to the compiled batch (fixed-batch

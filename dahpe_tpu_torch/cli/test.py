@@ -9,7 +9,9 @@ target test splits, from host loaders or, with ``--device-store``,
 device-resident ones. ``--artifact model.pt2`` evaluates an exported serving
 artifact instead (``cli.export``, float or int8, float32 input): the same
 loaders and PCK grouping, scoring the artifact's own decoded coordinates, so
-a float artifact reproduces its checkpoint's PCK exactly.
+a float artifact reproduces its checkpoint's PCK exactly. ``--bf16`` builds
+the checkpoint's model computing in bfloat16 (an artifact records its own
+dtype); ``--debug`` draws the target split's printed host batches.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from dahpe_tpu_torch.cli.common import (
     build_device_val_loader,
     build_model,
     build_val_loader,
+    make_visualizer,
     refuse_unported,
 )
 from dahpe_tpu_torch.evaluate import make_artifact_eval_step, make_eval_step, validate
@@ -73,7 +76,9 @@ def main(args) -> dict:
         kw = dict(image_size=args.image_size, heatmap_size=args.heatmap_size,
                   print_freq=args.print_freq, eval_step=eval_step, device=args.device)
         src_acc = validate(val_source_loader, model, val_source, **kw)
-        tgt_acc = validate(val_target_loader, model, val_target, **kw)
+        tgt_acc = validate(val_target_loader, model, val_target,
+                           visualize=make_visualizer(val_target, logger) if args.debug
+                           else None, **kw)
         print(f"Source: {src_acc['all']:4.3f} Target: {tgt_acc['all']:4.3f}")
         for name, acc in tgt_acc.items():
             print(f"{name}: {acc:4.3f}")

@@ -18,6 +18,12 @@ data, no host traffic).
 fused call, a CUDA graph replayed K times on the card; the loops then step
 by K, print chunk means and stop, save and resume only on chunk boundaries.
 
+``--bf16`` computes in bfloat16 on float32 parameters (every model the run
+builds). ``--debug`` draws the first source and target image of every
+printed batch with its predictions, and the target validation's host
+batches, into ``{log}/visualize/`` (cv2); with ``--device-store`` it needs
+one iteration a call, whose batches the fused call returns.
+
 Deliberate divergences from the JAX package's CLI: ``--steps-per-call`` is
 checked before anything runs on every input mode, and a K below 1 is
 rejected, not coerced; the stop poller is the single-process local check
@@ -46,6 +52,7 @@ from dahpe_tpu_torch.cli.common import (
     build_model,
     build_train_loader,
     build_val_loader,
+    make_visualizer,
     maybe_decoded_cache,
     refuse_unported,
     train_loader_mode,
@@ -359,6 +366,7 @@ def _run_phases(args, logger, saver, stop_signum):
             if state.ema is not None:
                 state.ema = {k: v.detach().clone() for k, v in ema_state(model).items()}
 
+    visualize = make_visualizer(train_source, logger) if args.debug else None
     eval_step = make_eval_step(model, device=args.device)
     val_kw = dict(image_size=args.image_size, heatmap_size=args.heatmap_size,
                   print_freq=args.print_freq, device=args.device)
@@ -389,12 +397,6 @@ def _run_phases(args, logger, saver, stop_signum):
     producer = dict(image_size=args.image_size, heatmap_size=args.heatmap_size,
                     rotation=args.rotation, scale_range=tuple(args.resize_scale))
     if args.device_store:
-        # one call per chunk of iterations: both stores' gather +
-        # augmentation + targets and the 3-step minimax, the generators
-        # advancing on device
-        fused = make_fused_da_iteration(model, stores["source"], stores["target"],
-                                        args.batch_size, steps_per_call=chunk,
-                                        **producer, **step_config)
         gens = [stores["source"].generator(0), stores["target"].generator(0)]
         for i, key in enumerate(("key_s", "key_t")):
             if key in resume_aux:
@@ -405,9 +407,16 @@ def _run_phases(args, logger, saver, stop_signum):
         def current_stream_aux():
             return {"key_s": gens[0].get_state(), "key_t": gens[1].get_state()}
 
+        # one call per chunk of iterations: both stores' gather +
+        # augmentation + targets and the 3-step minimax, the generators
+        # advancing on device; a one-iteration call (--debug's) also returns
+        # its batches for the drawings
+        fused = make_fused_da_iteration(model, stores["source"], stores["target"],
+                                        args.batch_size, steps_per_call=chunk,
+                                        **producer, **step_config)
+
         def run_iteration(state):
-            state, metrics, _, _ = fused(state, gens[0], gens[1])
-            return state, metrics
+            return fused(state, gens[0], gens[1])
     else:
         step_fn = make_da_train_step(model, **step_config)
         if args.device_aug:
@@ -427,7 +436,9 @@ def _run_phases(args, logger, saver, stop_signum):
             return {}
 
         def run_iteration(state):
-            return step_fn(state, next(source_batches), next(target_batches))
+            b_s, b_t = next(source_batches), next(target_batches)
+            state, metrics = step_fn(state, b_s, b_t)
+            return state, metrics, b_s, b_t
 
     # the watermark survives resume: a post-resume epoch must not overwrite
     # checkpoints/best unless it beats the pre-resume best
@@ -450,12 +461,12 @@ def _run_phases(args, logger, saver, stop_signum):
         from dahpe_tpu_torch.utils import profiling
 
         for _ in range(2):  # warm-up: cuDNN picks its algorithms
-            state, metrics = run_iteration(state)
+            state, metrics, _, _ = run_iteration(state)
         host_scalars(metrics, ("loss_s",))
         tracedir = os.path.join(args.log, "trace")
         with profiling.trace(tracedir) as summary:
             for _ in range(args.profile):
-                state, metrics = run_iteration(state)
+                state, metrics, _, _ = run_iteration(state)
             host_scalars(metrics, ("loss_s",))
         print(f"profiler trace ({args.profile} iters) -> {tracedir}: {summary}")
     global_step = state.step
@@ -480,7 +491,7 @@ def _run_phases(args, logger, saver, stop_signum):
         end = time.time()
         first_iter = start_iter if epoch == start_epoch else 0
         for i in range(first_iter, args.iters_per_epoch, chunk):
-            state, metrics = run_iteration(state)
+            state, metrics, b_s, b_t = run_iteration(state)
             global_step += chunk
             if i % args.print_freq == 0:
                 vals = host_scalars(metrics, tuple(meters))
@@ -490,6 +501,12 @@ def _run_phases(args, logger, saver, stop_signum):
                     meter.update(vals[k])
                 batch_time.update(time.time() - end)
                 progress.display(i)
+                if visualize is not None:
+                    scale = args.image_size / args.heatmap_size
+                    for name, batch, pred in (("source", b_s, metrics["pred_s"]),
+                                              ("target", b_t, metrics["pred_t"])):
+                        visualize(batch["image"][0].cpu().numpy(),
+                                  pred[0].cpu().numpy() * scale, f"{name}_{i}_pred")
             end = time.time()
             budget_done = args.max_steps and global_step >= args.max_steps
             stop_sig = poll_stop()
@@ -515,7 +532,9 @@ def _run_phases(args, logger, saver, stop_signum):
         # the epoch checkpoint is finiteness-gated too
         check_finite(saver, logger, state, global_step, **host_scalars(metrics, DA_LOSSES))
         src_acc = validate(val_source_loader, model, val_source, eval_step=eval_step, **val_kw)
-        tgt_acc = validate(val_target_loader, model, val_target, eval_step=eval_step, **val_kw)
+        tgt_acc = validate(val_target_loader, model, val_target, eval_step=eval_step,
+                           visualize=make_visualizer(val_target, logger) if args.debug
+                           else None, **val_kw)
 
         epoch_path = logger.get_checkpoint_path(epoch)
         saver.save(epoch_path, ckpt.state_tree(state))

@@ -31,7 +31,8 @@ def get_max_preds(heatmaps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def upsample_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """Bilinear resize of ``(B, H, W, K)`` with ``align_corners=False``:
     source coordinate ``(i + 0.5) * H_in / H_out - 0.5``, clamped at the
-    edges (the reference's ``nn.Upsample(mode='bilinear')``)."""
+    edges (the reference's ``nn.Upsample(mode='bilinear')``), in the input's
+    dtype."""
     y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(out_hw), mode="bilinear",
                       align_corners=False)
     return y.permute(0, 2, 3, 1)

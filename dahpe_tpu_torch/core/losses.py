@@ -36,7 +36,9 @@ def joints_kl_loss(
 
     Like the JAX package, the target's sum is guarded with 1e-12 so an
     all-zero (invisible / out-of-bounds) joint contributes exactly 0 instead
-    of the reference's NaN.
+    of the reference's NaN. A bfloat16 prediction is log-softmaxed in
+    bfloat16 and the KL is float32 against the float32 target, as the JAX
+    package's promotions give.
 
     Args:
       output / target: ``(B, H, W, K)``.

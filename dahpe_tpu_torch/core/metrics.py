@@ -50,24 +50,31 @@ def pck_accuracy(
     heatmap. Returns ``(acc (K,), avg_acc (), cnt (), preds (B, K, 2))``;
     ``acc`` is -1 for joints with no valid sample and ``avg_acc`` averages
     only over valid joints.
+
+    Bfloat16 heatmaps decode as float32 ones do (a first-occurrence argmax,
+    float32 coordinates); as in the JAX package the normalizer is made in
+    the heatmaps' dtype (``h / 10`` rounded to bfloat16) and the distances
+    in float32.
     """
     pred, _ = get_max_preds(output)
-    acc, avg, cnt = pck_of_preds(pred, target, thr=thr)
+    acc, avg, cnt = pck_of_preds(pred, target, thr=thr, norm_dtype=output.dtype)
     return acc, avg, cnt, pred
 
 
 def pck_of_preds(
-    pred: torch.Tensor, target: torch.Tensor, *, thr: float = 0.5
+    pred: torch.Tensor, target: torch.Tensor, *, thr: float = 0.5, norm_dtype=None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`pck_accuracy` of decoded predictions ``pred (B, K, 2)`` in
     heatmap pixels against ``(B, H, W, K)`` target heatmaps: ``(acc (K,),
-    avg_acc (), cnt ())``."""
+    avg_acc (), cnt ())``. The normalizer ``heatmap_size / 10`` is made in
+    ``norm_dtype`` (default ``pred``'s); the distances are in ``pred``'s."""
     b, h, w, _ = target.shape
     gt, _ = get_max_preds(target)
     # filled on the device: a tensor built from a host list is a copy that
     # waits for the stream
-    norm = torch.stack([torch.full((b,), h / 10.0, dtype=pred.dtype, device=pred.device),
-                        torch.full((b,), w / 10.0, dtype=pred.dtype, device=pred.device)],
+    dt = norm_dtype or pred.dtype
+    norm = torch.stack([torch.full((b,), h / 10.0, dtype=dt, device=pred.device),
+                        torch.full((b,), w / 10.0, dtype=dt, device=pred.device)],
                        dim=-1)
     dists = calc_dists(pred, gt, norm)
     acc = dist_acc(dists, thr)

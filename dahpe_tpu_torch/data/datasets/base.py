@@ -7,7 +7,7 @@ uses. Samples come back as numpy dicts; the Gaussian targets are rendered
 batched on the device (:func:`dahpe_tpu_torch.data.pipeline.finalize_batch`).
 
 Left out: ``fetch_warped`` raises until ``--host-warp`` (the native host
-warp) is ported, and ``visualize`` (cv2) comes with ``--debug``.
+warp) is ported. ``visualize`` (``--debug``) imports cv2 when it draws.
 """
 
 from __future__ import annotations
@@ -86,6 +86,30 @@ class KeypointDataset:
             name: sum(accuracies[i] for i in idxs) / len(idxs)
             for name, idxs in self.keypoints_group.items()
         }
+
+    def visualize(self, image, keypoints, filename: str) -> None:
+        """Draw the coloured skeleton over ``image`` (``(H, W, 3)`` uint8
+        RGB, ``keypoints (K, 2)`` in its pixels) and write it to ``filename``
+        (``keypoint_dataset.py:38-56``)."""
+        import cv2
+
+        colors = {
+            "yellow": (0, 255, 255),
+            "green": (0, 255, 0),
+            "blue": (255, 0, 0),
+            "purple": (255, 0, 255),
+            "red": (0, 0, 255),
+            "black": (0, 0, 0),
+        }
+        img = cv2.cvtColor(np.asarray(image), cv2.COLOR_RGB2BGR).copy()
+        for _, (line, color) in self.colored_skeleton.items():
+            for i in range(len(line) - 1):
+                s, e = keypoints[line[i]], keypoints[line[i + 1]]
+                cv2.line(img, (int(s[0]), int(s[1])), (int(e[0]), int(e[1])),
+                         color=colors.get(color, (255, 255, 255)), thickness=3)
+        for kp in keypoints:
+            cv2.circle(img, (int(kp[0]), int(kp[1])), 3, colors["black"], 1)
+        cv2.imwrite(filename, img)
 
 
 class Hand21KeypointDataset(KeypointDataset):

@@ -171,6 +171,7 @@ def validate(
     print_freq: int = 100,
     eval_step=None,
     device=None,
+    visualize=None,
 ) -> dict:
     """Per-group PCK dict (``dataset.keypoints_group`` keys) over ``loader``.
 
@@ -181,6 +182,11 @@ def validate(
     ``heatmap_size`` targets. A trailing partial host batch is padded to the
     loader's batch size with zero rows: their all-zero targets fail the PCK
     peak filter and the loss is averaged over the real rows only.
+
+    ``visualize(image, keypoints, name)`` (``cli.common.make_visualizer``,
+    ``--debug``) draws the first image of every printed host batch with its
+    predictions in image pixels (``val_{i}_pred``) and its labels
+    (``val_{i}_label``); device-resident batches are not drawn.
     """
     eval_step = eval_step or make_eval_step(model, device=device)
     acc = AverageMeterDict(dataset.keypoints_group.keys(), ":3.2f")
@@ -209,4 +215,8 @@ def validate(
         acc.update(dataset.group_accuracy(list(acc_per_joint)), n_real)
         if i % print_freq == 0:
             print(f"Test: [{i}/{len(loader)}]\t{losses}\tall {acc['all'].avg:.3f}")
+            if visualize is not None and not prepared:
+                pred = out["pred"][0].cpu().numpy()
+                visualize(item["image"][0], pred * image_size / heatmap_size, f"val_{i}_pred")
+                visualize(item["image"][0], item["keypoint2d"][0], f"val_{i}_label")
     return acc.average()

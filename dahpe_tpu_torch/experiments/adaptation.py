@@ -87,9 +87,10 @@ def run_adaptation_experiment(
     ``arch='mini'`` is a [1,1,1,1]-bottleneck backbone for quick smoke
     runs, ``'micro'`` a [1,1,1,1] BasicBlock one; any name in
     ``models.BACKBONES`` works. The acceptance configuration is the
-    ``__main__`` defaults (resnet18 @ 128²/32). ``device`` defaults to the
-    card; one device runs it (``n_devices`` other than 1 and ``bf16`` are
-    refused: ROADMAP queue 1 items 11 and 9).
+    ``__main__`` defaults (resnet18 @ 128²/32). ``bf16`` builds every model
+    computing in bfloat16 on float32 parameters, as the JAX package's
+    ``bf16``. ``device`` defaults to the card; one device runs it
+    (``n_devices`` other than 1 is refused: ROADMAP queue 1 item 11).
     """
     from dahpe_tpu_torch import models
     from dahpe_tpu_torch.data.device_store import DeviceDataStore
@@ -103,9 +104,6 @@ def run_adaptation_experiment(
         make_fused_pretrain_iteration,
     )
 
-    if bf16:
-        raise ValueError("bf16=True: bfloat16 compute is not ported yet "
-                         "(ROADMAP.md queue 1 item 9)")
     if n_devices not in (None, 1):
         raise ValueError(f"n_devices={n_devices}: the port runs one device; data "
                          "parallelism is ROADMAP.md queue 1 item 11")
@@ -137,14 +135,16 @@ def run_adaptation_experiment(
     sval_loader = DeviceDataStore(src_val, raw_size=image_size, **store).eval_loader(
         batch, heatmap_size=heatmap_size)
 
+    dtype = torch.bfloat16 if bf16 else None
+
     def make_backbone():
         if arch == "mini":
-            return models.ResNet(Bottleneck, [1, 1, 1, 1])
+            return models.ResNet(Bottleneck, [1, 1, 1, 1], dtype=dtype)
         if arch == "micro":
             # BasicBlock keeps the stage widths at 64..512 (no 4x Bottleneck
             # expansion): ~20x cheaper than 'mini' end to end
-            return models.ResNet(BasicBlock, [1, 1, 1, 1])
-        return models.get_backbone(arch)
+            return models.ResNet(BasicBlock, [1, 1, 1, 1], dtype=dtype)
+        return models.get_backbone(arch, dtype=dtype)
 
     aug = dict(image_size=image_size, heatmap_size=heatmap_size,
                rotation=rotation, scale_range=tuple(scale_range))
@@ -152,7 +152,7 @@ def run_adaptation_experiment(
 
     # ---- phase 1: supervised source pretrain --------------------------
     torch.manual_seed(seed)
-    pre_model = models.PoseResNet(make_backbone(), num_keypoints=21)
+    pre_model = models.PoseResNet(make_backbone(), num_keypoints=21, dtype=dtype)
     pre_state = create_pretrain_state(pre_model, device=device)
     pre_fused = make_fused_pretrain_iteration(pre_model, src_store, batch, **aug)
     gen = src_store.generator(seed + 100)
@@ -183,7 +183,7 @@ def run_adaptation_experiment(
 
     # ---- DA: the full 3-step minimax from the same pretrain ------------
     torch.manual_seed(seed)
-    da_model = models.MultiHeadPoseResNet(make_backbone(), num_keypoints=21)
+    da_model = models.MultiHeadPoseResNet(make_backbone(), num_keypoints=21, dtype=dtype)
     warm_start(da_model, pre_vars)
     da_state = create_da_state(da_model, device=device, with_ema=with_ema)
     da_fused = make_fused_da_iteration(
@@ -195,7 +195,7 @@ def run_adaptation_experiment(
     curve = []
     t0 = time.time()
     for i in range(da_iters):
-        da_state, m, ks, kt = da_fused(da_state, ks, kt)
+        da_state, m = da_fused(da_state, ks, kt)[:2]
         if (i + 1) % eval_every == 0 or i + 1 == da_iters:
             pck = _eval_target(da_model, val_loader, tgt_val, eval_step=eval_da, **evals)
             curve.append((i + 1, float(pck)))
@@ -257,14 +257,11 @@ if __name__ == "__main__":
                         "mitigation; default off = reference behavior)")
     p.add_argument("--eval-every", type=int, default=500)
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute; not ported yet (ROADMAP.md queue 1 item 9)")
+                   help="bfloat16 compute dtype (float32 parameters)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--json", default=None,
                    help="also write the result dict to this path")
     a = p.parse_args()
-    if a.bf16:
-        raise SystemExit("--bf16 (bfloat16 compute) is not ported yet (ROADMAP.md "
-                         "queue 1 item 9)")
     r = run_adaptation_experiment(
         arch=a.arch, pre_iters=a.pre_iters, da_iters=a.da_iters,
         batch=a.batch, n_train=a.n_train, image_size=a.image_size,

@@ -6,6 +6,7 @@ from dahpe_tpu_torch.models.pose_resnet import MultiHeadPoseResNet, PoseResNet
 from dahpe_tpu_torch.models.resnet import (
     BasicBlock,
     Bottleneck,
+    Conv2d,
     ResNet,
     resnet18,
     resnet34,
@@ -32,15 +33,17 @@ BACKBONES = {
 }
 
 
-def get_backbone(name: str, **kwargs):
-    """Look up a backbone constructor by name (the ``-a/--arch`` flag)."""
+def get_backbone(name: str, dtype=None):
+    """Build the backbone named ``name`` (the ``-a/--arch`` flag) with the
+    compute dtype ``dtype`` (``None``: float32; ``torch.bfloat16`` for
+    ``--bf16``)."""
     try:
         ctor = BACKBONES[name]
     except KeyError:
         raise ValueError(
             f"unknown arch {name!r}; choices: {sorted(BACKBONES)}"
         ) from None
-    return ctor(**kwargs)
+    return ctor(dtype=dtype)
 
 
 __all__ = [
@@ -49,6 +52,7 @@ __all__ = [
     "BasicBlock",
     "BatchNorm2d",
     "Bottleneck",
+    "Conv2d",
     "DownsampleStage",
     "FusionHead",
     "PlainHead",

@@ -6,6 +6,13 @@ Counterpart of ``dahpe_tpu/models/batch_norm.py``, which re-creates torch's
 the running variance takes the unbiased batch variance, eps is 1e-5. Here
 that is torch's own layer; the class pins the two constants so the source of
 truth is one place in both packages.
+
+In a bfloat16 model (``dtype=torch.bfloat16``) the layer takes the
+convolutions' bfloat16 output and, as the JAX layer does, computes the
+statistics and the normalisation in float32 against its float32 affine
+parameters and running statistics, and returns bfloat16: ``F.batch_norm``
+does exactly that for a bfloat16 input with float32 parameters, on the CPU
+and on the card.
 """
 
 from __future__ import annotations

@@ -6,6 +6,7 @@ plain head ``regda_7.py:4906-4929``, 64→32 fusion ``regda_7.py:4508-4581``,
 →16 fusion ``regda_7.py:4583-4662``. Submodules are torch Sequential indices,
 so ``.pth`` keys load unchanged (e.g. ``head_adv2.last_lay.2.weight``).
 Every conv starts from the JAX package's ``head_init`` (:func:`head_init_`).
+``dtype`` is the compute dtype, as in :mod:`dahpe_tpu_torch.models.resnet`.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from dahpe_tpu_torch.models.batch_norm import BatchNorm2d
+from dahpe_tpu_torch.models.resnet import Conv2d
 
 
 def head_init_(module: nn.Module) -> nn.Module:
@@ -32,12 +34,13 @@ def head_init_(module: nn.Module) -> nn.Module:
 class PlainHead(nn.Sequential):
     """[Conv3x3 → BN → ReLU] x (num_layers-1) → Conv1x1(C→K)."""
 
-    def __init__(self, num_keypoints: int, num_layers: int = 2, channel_dim: int = 256):
+    def __init__(self, num_keypoints: int, num_layers: int = 2, channel_dim: int = 256,
+                 dtype: torch.dtype | None = None):
         layers = []
         for _ in range(num_layers - 1):
-            layers += [nn.Conv2d(channel_dim, channel_dim, 3, padding=1),
+            layers += [Conv2d(channel_dim, channel_dim, 3, padding=1, compute_dtype=dtype),
                        BatchNorm2d(channel_dim), nn.ReLU(inplace=True)]
-        layers.append(nn.Conv2d(channel_dim, num_keypoints, 1))
+        layers.append(Conv2d(channel_dim, num_keypoints, 1, compute_dtype=dtype))
         super().__init__(*layers)
         head_init_(self)
 
@@ -46,12 +49,13 @@ class DownsampleStage(nn.Sequential):
     """[BN, ReLU, Conv3x3 s2, BN, ReLU, Conv1x1, BN, ReLU]: one stride-2 block
     halving the spatial size (``regda_7.py:4544-4571``)."""
 
-    def __init__(self, channel_dim: int = 256):
+    def __init__(self, channel_dim: int = 256, dtype: torch.dtype | None = None):
         c = channel_dim
         super().__init__(
             BatchNorm2d(c), nn.ReLU(inplace=True),
-            nn.Conv2d(c, c, 3, stride=2, padding=1), BatchNorm2d(c), nn.ReLU(inplace=True),
-            nn.Conv2d(c, c, 1), BatchNorm2d(c), nn.ReLU(inplace=True),
+            Conv2d(c, c, 3, stride=2, padding=1, compute_dtype=dtype), BatchNorm2d(c),
+            nn.ReLU(inplace=True),
+            Conv2d(c, c, 1, compute_dtype=dtype), BatchNorm2d(c), nn.ReLU(inplace=True),
         )
         head_init_(self)
 
@@ -65,16 +69,18 @@ class FusionHead(nn.Module):
     """
 
     def __init__(self, num_keypoints: int, feature_stride: int = 1,
-                 num_layers: int = 2, channel_dim: int = 256):
+                 num_layers: int = 2, channel_dim: int = 256,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         c = channel_dim
-        self.heatmap_conv = nn.Conv2d(num_keypoints, c, 1)
+        self.heatmap_conv = Conv2d(num_keypoints, c, 1, compute_dtype=dtype)
         if feature_stride == 1:
-            self.feature_conv = nn.Conv2d(c, c, 1)
+            self.feature_conv = Conv2d(c, c, 1, compute_dtype=dtype)
         else:
-            self.feature_conv = nn.Conv2d(c, c, 3, stride=feature_stride, padding=1)
-        self.last_lay = DownsampleStage(c)
-        self.model = PlainHead(num_keypoints, num_layers, c)
+            self.feature_conv = Conv2d(c, c, 3, stride=feature_stride, padding=1,
+                                       compute_dtype=dtype)
+        self.last_lay = DownsampleStage(c, dtype)
+        self.model = PlainHead(num_keypoints, num_layers, c, dtype)
         head_init_(self)
 
     def forward(self, feature: torch.Tensor, heatmap: torch.Tensor) -> torch.Tensor:

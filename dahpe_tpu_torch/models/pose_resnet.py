@@ -11,6 +11,12 @@ Public methods take and return the JAX package's layouts: images
 convolutions run NCHW; the layout converters are views, so the NHWC input
 reaches the first convolution as a ``channels_last`` tensor and nothing is
 copied at the boundary.
+
+``dtype`` is the compute dtype (the Flax modules' ``dtype``): with
+``torch.bfloat16`` the convolutions and deconvolutions compute in bfloat16
+on float32 parameters, batch norm keeps float32 statistics, and every
+output is bfloat16; the images stay float32 into the first convolution,
+which casts them. ``None`` computes in float32.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from torch import nn
 
 from dahpe_tpu_torch.core.layout import from_bkhw, to_bkhw
 from dahpe_tpu_torch.models.heads import FusionHead, PlainHead, head_init_
+from dahpe_tpu_torch.models.resnet import Conv2d
 from dahpe_tpu_torch.models.upsampling import Upsampling
 from dahpe_tpu_torch.ops.gradient_scale import gradient_scale
 
@@ -28,11 +35,11 @@ class PoseResNet(nn.Module):
     """Backbone → deconv upsampling → Conv1x1 head (pretrain model)."""
 
     def __init__(self, backbone: nn.Module, num_keypoints: int = 21,
-                 feature_dim: int = 256):
+                 feature_dim: int = 256, dtype: torch.dtype | None = None):
         super().__init__()
         self.backbone = backbone
-        self.upsampling = Upsampling(backbone.out_features, (feature_dim,) * 3)
-        self.head = head_init_(nn.Conv2d(feature_dim, num_keypoints, 1))
+        self.upsampling = Upsampling(backbone.out_features, (feature_dim,) * 3, dtype=dtype)
+        self.head = head_init_(Conv2d(feature_dim, num_keypoints, 1, compute_dtype=dtype))
 
     def forward(self, x: torch.Tensor, gl_coeff=0.0) -> torch.Tensor:
         del gl_coeff  # uniform signature with MultiHeadPoseResNet
@@ -49,12 +56,13 @@ class MultiHeadPoseResNet(nn.Module):
     """
 
     def __init__(self, backbone: nn.Module, num_keypoints: int = 21,
-                 feature_dim: int = 256, num_head_layers: int = 2):
+                 feature_dim: int = 256, num_head_layers: int = 2,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         common = dict(num_keypoints=num_keypoints, num_layers=num_head_layers,
-                      channel_dim=feature_dim)
+                      channel_dim=feature_dim, dtype=dtype)
         self.backbone = backbone
-        self.upsampling = Upsampling(backbone.out_features, (feature_dim,) * 3)
+        self.upsampling = Upsampling(backbone.out_features, (feature_dim,) * 3, dtype=dtype)
         self.head = PlainHead(**common)
         self.head_adv = PlainHead(**common)
         self.head_adv2 = FusionHead(feature_stride=1, **common)
@@ -69,7 +77,9 @@ class MultiHeadPoseResNet(nn.Module):
         return from_bkhw(self.head(to_bkhw(f)))
 
     def adv_heads(self, f: torch.Tensor, gl_coeff=0.0) -> dict[str, torch.Tensor]:
-        """The three adversarial heads off the λ-scaled feature map."""
+        """The three adversarial heads off the λ-scaled feature map; λ is
+        rounded to the features' dtype (``gradient_scale``), as the JAX
+        package's ``jnp.asarray(gl_coeff, dtype=f.dtype)``."""
         f_adv = gradient_scale(to_bkhw(f), gl_coeff)
         y_adv = self.head_adv(f_adv)
         y_adv2 = self.head_adv2(f_adv, y_adv)

@@ -5,6 +5,13 @@ Port of ``dahpe_tpu/models/resnet.py`` (the reference's
 (``conv1 / bn1 / layerN.i.convJ / ... / downsample.{0,1}``), so a reference
 ``.pth`` loads with a plain ``load_state_dict``. The modules run NCHW. The
 convs start from the JAX package's initialisation (:func:`conv_init_`).
+
+``dtype`` is the compute dtype, as the Flax modules' ``dtype``: with
+``torch.bfloat16`` every conv casts its input and its float32 weight to
+bfloat16 and returns bfloat16 (:class:`Conv2d`), and batch norm keeps
+float32 statistics (:mod:`dahpe_tpu_torch.models.batch_norm`). ``None``
+computes in the weights' dtype, float32, with the operations of a plain
+``nn.Conv2d``.
 """
 
 from __future__ import annotations
@@ -17,6 +24,23 @@ from torch import nn
 from dahpe_tpu_torch.models.batch_norm import BatchNorm2d
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with a compute dtype (Flax's ``nn.Conv(dtype=...)``):
+    the input, the weight and the bias are cast to it and the result is in
+    it; the parameters stay float32, and their gradients arrive in float32
+    through the casts. ``None`` computes in the weight's dtype, where the
+    casts return their tensors unchanged: ``nn.Conv2d``'s own operations."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
 def conv_init_(conv: nn.Conv2d) -> nn.Conv2d:
     """The JAX package's ResNet conv init (``dahpe_tpu/models/resnet.py:21``,
     Kaiming-normal fan_out as torchvision's ResNets): a normal truncated at
@@ -27,29 +51,33 @@ def conv_init_(conv: nn.Conv2d) -> nn.Conv2d:
     return conv
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1) -> nn.Conv2d:
-    return conv_init_(nn.Conv2d(
-        cin, cout, k, stride=stride, padding=k // 2, groups=groups, bias=False
+def _conv(cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
+          dtype: torch.dtype | None = None) -> Conv2d:
+    return conv_init_(Conv2d(
+        cin, cout, k, stride=stride, padding=k // 2, groups=groups, bias=False,
+        compute_dtype=dtype,
     ))
 
 
-def _downsample(cin: int, cout: int, stride: int) -> nn.Sequential:
-    return nn.Sequential(_conv(cin, cout, 1, stride), BatchNorm2d(cout))
+def _downsample(cin: int, cout: int, stride: int, dtype) -> nn.Sequential:
+    return nn.Sequential(_conv(cin, cout, 1, stride, dtype=dtype), BatchNorm2d(cout))
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, groups: int = 1, base_width: int = 64):
+                 downsample: bool = False, groups: int = 1, base_width: int = 64,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride)
+        self.conv1 = _conv(inplanes, planes, 3, stride, dtype=dtype)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = _conv(planes, planes, 3)
+        self.conv2 = _conv(planes, planes, 3, dtype=dtype)
         self.bn2 = BatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
-            _downsample(inplanes, planes * self.expansion, stride) if downsample else None
+            _downsample(inplanes, planes * self.expansion, stride, dtype) if downsample
+            else None
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -63,18 +91,20 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, groups: int = 1, base_width: int = 64):
+                 downsample: bool = False, groups: int = 1, base_width: int = 64,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         width = int(planes * (base_width / 64.0)) * groups
-        self.conv1 = _conv(inplanes, width, 1)
+        self.conv1 = _conv(inplanes, width, 1, dtype=dtype)
         self.bn1 = BatchNorm2d(width)
-        self.conv2 = _conv(width, width, 3, stride, groups)
+        self.conv2 = _conv(width, width, 3, stride, groups, dtype=dtype)
         self.bn2 = BatchNorm2d(width)
-        self.conv3 = _conv(width, planes * self.expansion, 1)
+        self.conv3 = _conv(width, planes * self.expansion, 1, dtype=dtype)
         self.bn3 = BatchNorm2d(planes * self.expansion)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
-            _downsample(inplanes, planes * self.expansion, stride) if downsample else None
+            _downsample(inplanes, planes * self.expansion, stride, dtype) if downsample
+            else None
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -89,10 +119,11 @@ class ResNet(nn.Module):
     """Headless ResNet: ``(B, 3, H, W)`` → ``(B, out_features, H/32, W/32)``."""
 
     def __init__(self, block: type, layers: Sequence[int], groups: int = 1,
-                 base_width: int = 64):
+                 base_width: int = 64, dtype: torch.dtype | None = None):
         super().__init__()
         self.block = block
-        self.conv1 = conv_init_(nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False))
+        self.conv1 = conv_init_(Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
+                                       compute_dtype=dtype))
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -104,7 +135,7 @@ class ResNet(nn.Module):
                 blk_stride = stride if bi == 0 else 1
                 needs_ds = blk_stride != 1 or inplanes != planes * block.expansion
                 blocks.append(block(inplanes, planes, blk_stride, needs_ds,
-                                    groups, base_width))
+                                    groups, base_width, dtype))
                 inplanes = planes * block.expansion
             setattr(self, f"layer{li + 1}", nn.Sequential(*blocks))
             planes *= 2
@@ -119,8 +150,8 @@ class ResNet(nn.Module):
 
 
 def _make(block, layers, **kw):
-    def ctor():
-        return ResNet(block, layers, **kw)
+    def ctor(dtype: torch.dtype | None = None):
+        return ResNet(block, layers, dtype=dtype, **kw)
 
     return ctor
 

@@ -6,12 +6,15 @@ Port of ``dahpe_tpu/models/upsampling.py`` (the reference's
 ``(B, 256, 64, 64)``. The deconv is torch's own; the weight keeps torch's
 ``(I, O, kh, kw)`` layout, which the JAX package stores flipped as HWIO.
 The deconvs start from the JAX package's ``head_init``, N(0, 1e-3²).
+``dtype`` is the compute dtype, as in :mod:`dahpe_tpu_torch.models.resnet`.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dahpe_tpu_torch.models.batch_norm import BatchNorm2d
@@ -30,13 +33,24 @@ def deconv_geometry(kernel_size: int) -> tuple[int, int]:
 
 
 class ConvTranspose2dTorch(nn.ConvTranspose2d):
-    """Stride-2 ``nn.ConvTranspose2d`` with the reference's geometry for k."""
+    """Stride-2 ``nn.ConvTranspose2d`` with the reference's geometry for k;
+    input, weight and bias are cast to ``compute_dtype`` (the JAX package's
+    ``x.astype(dtype)``, ``kernel.astype(dtype)``), or to the weight's dtype
+    where it is ``None``, a cast that changes nothing."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 4,
-                 bias: bool = False):
+                 bias: bool = False, compute_dtype: torch.dtype | None = None):
         padding, output_padding = deconv_geometry(kernel_size)
         super().__init__(in_channels, out_channels, kernel_size, stride=2,
                          padding=padding, output_padding=output_padding, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
 
 
 class Upsampling(nn.Sequential):
@@ -44,10 +58,12 @@ class Upsampling(nn.Sequential):
     (deconvs) and ``{1,4,7}`` (BNs)."""
 
     def __init__(self, in_channels: int, hidden_dims: Sequence[int] = (256, 256, 256),
-                 kernel_sizes: Sequence[int] = (4, 4, 4), bias: bool = False):
+                 kernel_sizes: Sequence[int] = (4, 4, 4), bias: bool = False,
+                 dtype: torch.dtype | None = None):
         layers = []
         for dim, k in zip(hidden_dims, kernel_sizes):
-            layers += [ConvTranspose2dTorch(in_channels, dim, k, bias=bias),
+            layers += [ConvTranspose2dTorch(in_channels, dim, k, bias=bias,
+                                            compute_dtype=dtype),
                        BatchNorm2d(dim), nn.ReLU(inplace=True)]
             in_channels = dim
         super().__init__(*layers)

@@ -14,9 +14,13 @@ import torch
 class _GradientScale(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, coeff):
-        # a host float stays a host float: copying it to the card would make
-        # the copy wait for the stream
-        ctx.coeff = coeff.to(x.dtype) if isinstance(coeff, torch.Tensor) else float(coeff)
+        # λ in x's dtype (bfloat16 rounds it). A host float stays a host
+        # float, rounded on the host: copying it to the card would make the
+        # copy wait for the stream
+        if isinstance(coeff, torch.Tensor):
+            ctx.coeff = coeff.to(x.dtype)
+        else:
+            ctx.coeff = float(torch.tensor(float(coeff), dtype=x.dtype))
         return x.view_as(x)
 
     @staticmethod
@@ -25,8 +29,9 @@ class _GradientScale(torch.autograd.Function):
 
 
 def gradient_scale(x: torch.Tensor, coeff) -> torch.Tensor:
-    """Identity forward; backward scales ``dx`` by ``coeff`` (no grad to
-    coeff): a host float, or a tensor on the CPU (0-d) or beside ``x``."""
+    """Identity forward; backward scales ``dx`` by ``coeff`` rounded to
+    ``x``'s dtype (no grad to coeff): a host float, or a tensor on the CPU
+    (0-d) or beside ``x``."""
     return _GradientScale.apply(x, coeff)
 
 

@@ -123,10 +123,12 @@ def make_fused_da_iteration(model, source_store, target_store, batch_size: int, 
                             rotation: float = 180.0, scale_range=(0.6, 1.3),
                             sigma: float = 2.0, steps_per_call: int = 1,
                             **step_config) -> Callable:
-    """``(state, s_gen, t_gen) -> (state, metrics, s_gen, t_gen)``:
+    """``(state, s_gen, t_gen) -> (state, metrics, b_s, b_t)``:
     ``steps_per_call`` DA iterations drawing their source and target batches
     from the stores with the two generators (on the stores' device), which
-    advance in place. With K > 1 the metrics are the chunk means.
+    advance in place. At K = 1, ``b_s`` and ``b_t`` are the batches the
+    iteration drew (the CLI's ``--debug`` draws them); with K > 1 the
+    metrics are the chunk means and the batches ``None``.
     ``step_config`` goes to :func:`~dahpe_tpu_torch.train.da.make_da_train_step`."""
     k = _chunk_size(steps_per_call)
     cfg = dict(image_size=image_size, heatmap_size=heatmap_size, rotation=rotation,
@@ -138,13 +140,14 @@ def make_fused_da_iteration(model, source_store, target_store, batch_size: int, 
 
     def call(state, s_gen: torch.Generator, t_gen: torch.Generator):
         if k == 1:
-            state, metrics = step(state, src(s_gen), tgt(t_gen))
-            return state, metrics, s_gen, t_gen
+            b_s, b_t = src(s_gen), tgt(t_gen)
+            state, metrics = step(state, b_s, b_t)
+            return state, metrics, b_s, b_t
         stale = step.cover(state, k)
         metrics = chunk(lambda: step.run(state, src(s_gen), tgt(t_gen)),
                         (state, s_gen, t_gen), (s_gen, t_gen), stale)
         state.advance(k)
-        return state, metrics, s_gen, t_gen
+        return state, metrics, None, None
 
     return call
 

@@ -7,8 +7,8 @@
   DA model's warm start from the pretrain weights (the key-filtered
   ``filtered_update``) equals JAX's leaf for leaf, and ``_eval_target``
   gives JAX's PCK on a device-resident target split.
-- ``bf16`` and more than one device are refused, naming their ROADMAP
-  items.
+- More than one device is refused, naming its ROADMAP item (``bf16``
+  runs: ``tests/test_torch_port_bf16.py``).
 
 The acceptance run itself (resnet18 at 128², 4000+3000 iterations, seeds
 0-2) runs on the card: see README.md and PERF.md.
@@ -74,8 +74,8 @@ def test_micro_run_returns_every_key():
 
 
 def test_unported_options_are_refused():
-    with pytest.raises(ValueError, match="item 9"):
-        adaptation.run_adaptation_experiment(bf16=True, device="cpu")
+    """More than one device is refused, naming its ROADMAP item; ``bf16``
+    runs (``tests/test_torch_port_bf16.py``)."""
     with pytest.raises(ValueError, match="item 11"):
         adaptation.run_adaptation_experiment(n_devices=2, device="cpu")
 

@@ -248,8 +248,8 @@ def test_draws_and_stream_are_seeded():
 def test_fused_da_iteration_equals_producer_then_step():
     """``make_fused_da_iteration`` is the stores' producers and the DA step
     in one call: from the same weights and generator seeds it gives the
-    same state as producing the batches and stepping separately, and the
-    generators advance in place."""
+    same state as producing the batches and stepping separately, returns
+    the batches it drew, and the generators advance in place."""
     from dahpe_tpu_torch import models
     from dahpe_tpu_torch.train import create_da_state, make_da_train_step, make_fused_da_iteration
 
@@ -265,15 +265,17 @@ def test_fused_da_iteration_equals_producer_then_step():
         s_gen, t_gen = stores[0].generator(3), stores[1].generator(4)
         if fused:
             call = make_fused_da_iteration(model, stores[0], stores[1], 2, **cfg)
-            state, metrics, s_out, t_out = call(state, s_gen, t_gen)
-            assert s_out is s_gen and t_out is t_gen
+            state, metrics, b_s, b_t = call(state, s_gen, t_gen)
         else:
             step = make_da_train_step(model)
-            state, metrics = step(state, stores[0].traced_batch_fn(2, **cfg)(s_gen),
-                                  stores[1].traced_batch_fn(2, **cfg)(t_gen))
-        states.append((state.model.state_dict(), s_gen.get_state(), t_gen.get_state()))
-    (a, sa, ta), (b, sb, tb) = states
+            b_s = stores[0].traced_batch_fn(2, **cfg)(s_gen)
+            b_t = stores[1].traced_batch_fn(2, **cfg)(t_gen)
+            state, metrics = step(state, b_s, b_t)
+        states.append((state.model.state_dict(), s_gen.get_state(), t_gen.get_state(),
+                       {**b_s, **{"t_" + k: v for k, v in b_t.items()}}))
+    (a, sa, ta, ba), (b, sb, tb, bb) = states
     assert torch.equal(sa, sb) and torch.equal(ta, tb)
+    assert ba.keys() == bb.keys() and all(torch.equal(ba[k], bb[k]) for k in ba)
     assert not torch.equal(sa, stores[0].generator(3).get_state())
     for key in a:
         assert torch.equal(a[key], b[key]), key

@@ -6,8 +6,10 @@ They cover the three input modes (``pil``, ``raw`` = ``--device-aug`` and
 ``--device-store``), warm starts from the JAX package's packed checkpoint
 and from a reference ``.pth``, ``--max-steps`` then ``--resume`` against a
 straight run (bit-identical on the CPU), the SIGTERM drain (exit 0), the
-NaN watchdog (exit 3), and the flags that are refused with their ROADMAP
-item. The card runs the same CLI at full width in ``chip_smoke.py`` phase 6.
+NaN watchdog (exit 3), ``--bf16`` and the ``--debug`` drawings (pixel for
+pixel the JAX package's), and the flags that are refused with their
+ROADMAP item. The card runs the same CLI at full width in ``chip_smoke.py``
+phases 6, 8b and 9d.
 """
 
 import json
@@ -226,10 +228,9 @@ def test_nan_watchdog_exits_3_and_keeps_latest_finite(roots, tmp_path, monkeypat
 @pytest.mark.parametrize("flags,item", [
     (["--host-warp"], "item 8"),
     (["--multihost"], "item 11"),
-    (["--bf16"], "item 9"),
-    (["--debug"], "item 9"),
     (["--steps-per-call", "2"], "needs --device-store"),
     (["--steps-per-call", "0"], "at least 1"),
+    (["--device-store", "--steps-per-call", "2", "--debug"], "without --debug"),
 ])
 def test_unported_flags_are_refused(roots, tmp_path, flags, item):
     """Refused before anything is built, naming the ROADMAP item (or, for
@@ -237,6 +238,78 @@ def test_unported_flags_are_refused(roots, tmp_path, flags, item):
     with pytest.raises(SystemExit, match=item):
         train_cli.cli_main(_argv(roots, tmp_path / "logs", *flags))
     assert not os.path.exists(tmp_path / "logs")
+
+
+def _drawings(log) -> set[str]:
+    root = log / "visualize"
+    return {os.path.relpath(os.path.join(d, f), root) for d, _, files in os.walk(root)
+            for f in files}
+
+
+@pytest.mark.parametrize("flag", ["--bf16", "--debug"])
+def test_formerly_refused_flags_run(roots, tmp_path, flag):
+    """``--bf16`` and ``--debug``, refused until they were ported, run a
+    pretrain and a DA epoch on the PIL path: finite losses, and with
+    ``--debug`` the first source and target image of each printed batch
+    and the target validation's drawn into ``visualize/<epoch>/``; without
+    it nothing is drawn."""
+    log = tmp_path / "logs"
+    assert train_cli.cli_main(_argv(roots, log, "--pretrain-epochs", "1", "--epochs", "1",
+                                    "--print-freq", "2", flag)) == 0
+    (da,) = [r for r in _metrics(log) if r["kind"] == "da_epoch"]
+    assert all(np.isfinite(da[k]) for k in ("loss_s", "loss_gf", "loss_gt"))
+    want = {"0/source_0_pred.jpg", "0/target_0_pred.jpg", "0/val_0_pred.jpg",
+            "0/val_0_label.jpg"}
+    assert _drawings(log) == (want if flag == "--debug" else set())
+
+
+def test_debug_with_device_store_and_test_cli(roots, tmp_path):
+    """``--device-store --debug`` runs one iteration a call, whose batches
+    the fused call returns, and draws the printed batches; the device-resident
+    validation is not drawn. ``cli.test --debug`` draws the target split's
+    printed host batches."""
+    log = tmp_path / "logs"
+    assert train_cli.cli_main(_argv(roots, log, "--device-store", "--debug",
+                                    "--pretrain-epochs", "0", "--epochs", "1")) == 0
+    assert _drawings(log) == {f"0/{d}_{i}_pred.jpg" for d in ("source", "target")
+                              for i in (0, 1)}
+    args = build_parser("test").parse_args(_argv(
+        roots, tmp_path / "test", "--debug", "--checkpoint",
+        str(log / "checkpoints" / "latest")))
+    test_cli.main(args)
+    n = len(test_cli.build_val_loader(args, test_cli.build_datasets(args, val_only=True)[3]))
+    assert _drawings(tmp_path / "test") == {f"val_{i}_{k}.jpg" for i in range(n)
+                                            for k in ("pred", "label")}
+
+
+@pytest.mark.parametrize("kind", ["skeleton", "heatmap"])
+def test_drawings_match_jax(tmp_path, kind):
+    """``KeypointDataset.visualize`` and ``utils.visualize.visualize_heatmap``
+    write the JAX package's pixels (cv2 draws both)."""
+    import cv2
+
+    from dahpe_tpu.data.datasets.base import Hand21KeypointDataset as JHand21
+    from dahpe_tpu.utils.visualize import visualize_heatmap as j_visualize_heatmap
+
+    from dahpe_tpu_torch.data import Hand21KeypointDataset
+    from dahpe_tpu_torch.utils.visualize import visualize_heatmap
+
+    rng = np.random.default_rng(6)
+    image = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    if kind == "skeleton":
+        kps = rng.uniform(-4, 68, (21, 2)).astype(np.float32)
+        Hand21KeypointDataset().visualize(image, kps, str(tmp_path / "port.png"))
+        JHand21("unused", []).visualize(image, kps, str(tmp_path / "jax.png"))
+        names = ["port.png"]
+    else:
+        hm = rng.uniform(-0.2, 1.2, (16, 16, 3)).astype(np.float32)
+        visualize_heatmap(image, hm, str(tmp_path / "port_{}.png"))
+        j_visualize_heatmap(image, hm, str(tmp_path / "jax_{}.png"))
+        names = [f"port_{j}.png" for j in range(3)]
+    for name in names:
+        got = cv2.imread(str(tmp_path / name))
+        assert got is not None and got.std() > 0, name
+        assert np.array_equal(got, cv2.imread(str(tmp_path / name.replace("port", "jax"))))
 
 
 def test_test_cli_refuses_artifacts_and_needs_a_checkpoint(roots, tmp_path):

@@ -63,16 +63,14 @@ def randomize_variables(variables, seed):
     }
 
 
-def jax_backbone(kind):
-    if kind == "basic":
-        return jmodels.ResNet(block=jresnet.BasicBlock, layers=[1, 1, 1, 1])
-    return jmodels.ResNet(block=jresnet.Bottleneck, layers=[1, 1, 1, 1])
+def jax_backbone(kind, dtype=None):
+    block = jresnet.BasicBlock if kind == "basic" else jresnet.Bottleneck
+    return jmodels.ResNet(block=block, layers=[1, 1, 1, 1], dtype=dtype)
 
 
-def port_backbone(kind):
-    if kind == "basic":
-        return models.ResNet(models.BasicBlock, [1, 1, 1, 1])
-    return models.ResNet(models.Bottleneck, [1, 1, 1, 1])
+def port_backbone(kind, dtype=None):
+    block = models.BasicBlock if kind == "basic" else models.Bottleneck
+    return models.ResNet(block, [1, 1, 1, 1], dtype=dtype)
 
 
 def model_pair(kind="bottleneck", *, image_size=64, seed=0):

@@ -235,9 +235,28 @@ def test_export_cli_then_test_cli_artifact(roots, tmp_path, kind):
 
 
 def test_export_refuses_bf16_and_test_needs_one_source(roots, tmp_path):
-    with pytest.raises(SystemExit, match="item 9"):
+    """``--int8`` refuses to take ``--bf16`` into its tree: the quantized
+    weights of ``--bf16 --int8`` equal those of ``--int8`` (the JAX
+    package's ``quantize_model`` calibrates from the folded float32
+    weights); ``--bf16`` alone exports a float artifact
+    (``tests/test_torch_port_bf16.py``). ``cli.test`` takes exactly one of
+    ``--artifact`` / ``--checkpoint``."""
+    from dahpe_tpu_torch import models
+
+    torch.manual_seed(0)
+    model = models.MultiHeadPoseResNet(models.get_backbone("resnet18"), num_keypoints=21)
+    checkpoint = str(tmp_path / "ckpt")
+    fast_ckpt.save_packed(checkpoint, ckpt.model_tree(model))
+    trees = []
+    for extra in ([], ["--bf16"]):
+        out = str(tmp_path / f"m{len(extra)}.pt2")
         export_cli.main(export_cli.build_export_parser().parse_args(
-            ["ckpt", "-o", str(tmp_path / "m.pt2"), "--bf16", "--device", "cpu"]))
+            [checkpoint, "-o", out, "-a", "resnet18", "--image-size", str(IMAGE),
+             "--heatmap-size", str(HEATMAP), "--device", "cpu", "--int8", *extra]))
+        with np.load(out + ".weights.npz") as data:
+            trees.append({k: data[k] for k in data.files})
+    assert trees[0].keys() == trees[1].keys()
+    assert all(np.array_equal(trees[0][k], trees[1][k]) for k in trees[0])
     with pytest.raises(SystemExit, match="exactly one"):
         test_cli.main(build_parser("test").parse_args(
             _argv(roots, tmp_path, "--artifact", "x", "--checkpoint", "y")))
