@@ -97,10 +97,40 @@ line, fail the run by raising:
    straight run), then ``cli.test --bf16`` on its ``best``, which must
    score the PCK the run logged (0 at 8 iterations); (e) phase 8c's cut
    acceptance in bfloat16, whose trained DA model's target PCK must lie
-   within 0.05 of a float32 twin's on the same weights.
+   within 0.05 of a float32 twin's on the same weights;
+10. data parallelism: (a) the data-parallel DA iteration
+   (``make_fused_da_iteration`` with ``parallel.data_parallel``'s
+   collectives) at world size 1 over NCCL in this process, at phase 5's
+   configuration: with cuDNN deterministic, and noise floors (the same runs
+   twice) that must be bit for bit, 2 iterations bit for bit equal to the
+   iteration without a group, and a K = 4 graph with the collectives
+   captured bit for bit equal to 4 eager calls; ms/iter at K = 1 and 4,
+   NCCL's device time, the collective calls an iteration issues and its
+   host syncs, 7 / 3 / 2 path kernels per eager iteration and as kernel
+   nodes of the captured graph (read from its DOT dump; the profiler's
+   count of a replay is reported beside them); (b) two ranks sharing the card over gloo
+   (``DAHPE_DIST_BACKEND=gloo``; NCCL refuses two ranks on one device),
+   each a process of this script (``--worker``), one DA iteration at global
+   batch 32 + 32 (each rank's 16 + 16 rows from its store shard) against
+   the same iteration at world 1: losses within rel 1e-4, every parameter
+   and BN statistic within 1e-4, all 373 parameters equal across the
+   ranks, 7 / 3 / 2 launches a rank, ms/iter and the collectives' share;
+   (c) ``cli.train --multihost --device-store`` over the two ranks on phase
+   6's cut data: a pretrain epoch and a DA epoch cut by ``--max-steps``, in
+   which SIGTERM to rank 1 alone drains both ranks at one step, rank 0
+   alone writes, and ``--resume`` ends bit for bit where a straight run
+   ends (each rank's sampling states from the sidecar); (d) ``cli.serve
+   --mesh`` on phase 7's float artifact: the coordinates at 1, 8 and 32
+   frames equal the server's without it.
 
 Then one JSON line of kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+    python3 chip_smoke.py --cards
+
+runs, on a machine with several cards, what needs them all: phase 1's
+build, 10d over every card on a float artifact it exports, and 10b with
+one rank per card over NCCL. It ends with the same last line.
 """
 
 from __future__ import annotations
@@ -177,11 +207,11 @@ def host_ms(torch, fn, iters: int = 100) -> float:
 PORT_KERNELS = ("render_gaussian_kernel", "pseudo_labels_kernel", "rotate3_fused_kernel",
                 "rotate3_u16_kernel")
 # kernel kinds, by the first kind whose marker a kernel's printed name
-# holds: the port's kernels, cuDNN's NCHW <-> NHWC conversions, batch norm,
+# holds: NCCL's collectives, the port's kernels, cuDNN's NCHW <-> NHWC conversions, batch norm,
 # convolutions and GEMMs (cuDNN, CUTLASS, cuBLAS), the multi-tensor
 # (foreach) SGD and EMA passes; "other" is the remaining elementwise and
 # reduction work
-KERNEL_KINDS = (("port", PORT_KERNELS), ("layout", ("nchwToNhwc", "nhwcToNchw")),
+KERNEL_KINDS = (("collective", ("nccl",)), ("port", PORT_KERNELS), ("layout", ("nchwToNhwc", "nhwcToNchw")),
                 ("batch_norm", ("batch_norm", "bn_")),
                 ("convolution", ("xmma", "cutlass", "cudnn", "conv", "gemm", "dgrad", "wgrad")),
                 ("foreach", ("multi_tensor_apply",)))
@@ -1336,19 +1366,12 @@ CLI_TRAIN, CLI_VAL = 256, 64  # frames per synthetic split in phase 6 (default 2
 CLI_ARCH, CLI_DEVICE = "resnet101", "cuda"
 
 
-def phase_cli(torch, kernels, smi, bare_ms, checkpoint):
-    """The training CLI end to end on the card (see the module docstring)."""
+def register_cut_domains():
+    """The synthetic domains of the CLI phases, their depth cut (fewer
+    frames per split), not their width."""
     from dahpe_tpu_torch import data
-    from dahpe_tpu_torch.cli import test as test_cli
-    from dahpe_tpu_torch.cli import train as train_cli
-    from dahpe_tpu_torch.cli.args import build_parser
     from dahpe_tpu_torch.data import synthetic
-    from dahpe_tpu_torch.utils import checkpoint as ckpt
-    from dahpe_tpu_torch.utils import fast_ckpt
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
-
-    # the depth of the data is cut, not its width: fewer frames per split
     class Source(synthetic.SyntheticHandsSource):
         def __init__(self, root="", **kw):
             kw.setdefault("n", CLI_VAL if kw.get("split") == "test" else CLI_TRAIN)
@@ -1361,6 +1384,18 @@ def phase_cli(torch, kernels, smi, bare_ms, checkpoint):
 
     Source.__name__, Target.__name__ = "SyntheticHandsSource", "SyntheticHandsTarget"
     data.DATASETS.update(SyntheticHandsSource=Source, SyntheticHandsTarget=Target)
+
+
+def phase_cli(torch, kernels, smi, bare_ms, checkpoint):
+    """The training CLI end to end on the card (see the module docstring)."""
+    from dahpe_tpu_torch.cli import test as test_cli
+    from dahpe_tpu_torch.cli import train as train_cli
+    from dahpe_tpu_torch.cli.args import build_parser
+    from dahpe_tpu_torch.utils import checkpoint as ckpt
+    from dahpe_tpu_torch.utils import fast_ckpt
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_cli")
+    register_cut_domains()
     iters, pre_iters, profiled = 8, 8, 1
     val_batches = -(-CLI_VAL // BATCH)
 
@@ -1700,7 +1735,7 @@ def phase_artifacts(torch, models, kernels, smi, phase3, cli_best):
             breakdown = {}
             for n, (frames, reps) in requests.items():
                 x = torch.from_numpy(frames).to(device)
-                graph = servable._graphs.get(n)
+                graph = (servable._graphs.get(n) or [None])[0]  # one card: one graph
                 breakdown[n] = {
                     "dispatch_ms": host_ms(torch, lambda: servable.run_arrays(frames), reps),
                     "eager_ms": host_ms(torch, lambda: [t.cpu() for t in servable.predict(
@@ -1747,7 +1782,8 @@ def phase_artifacts(torch, models, kernels, smi, phase3, cli_best):
                              f"{cli_best['scores']}")
     shutil.rmtree(cli_best["best"], ignore_errors=True)
     for name in os.listdir(root):  # the artifacts and weights: ~1 GB
-        os.remove(os.path.join(root, name))
+        if not name.startswith("float.pt2"):  # phase 10d serves the float one
+            os.remove(os.path.join(root, name))
     line("phase 7 serving artifacts resnet101 256²/64²/21", {
         "card": smi, "seconds": seconds, "int8_conv_shapes_checked": len(shapes),
         "int8_vs_float": {"mean_abs_err": int8_mae, "float_std": float_std, "bound": 0.1},
@@ -1788,6 +1824,38 @@ def put(torch, state, gens, snap):
     state.step = step
     for g, st in zip(gens, gen_states):
         g.set_state(st)
+
+
+def graph_kernel_nodes(torch, call, names) -> dict:
+    """Run ``call``, which captures one CUDA graph, with the graph kept
+    after capture (``keep_graph``: instantiated at its first replay); the
+    kernel nodes of each of ``names`` in the captured graph, read from its
+    DOT dump (``cudaGraphDebugDotPrint``: one line a node)."""
+    made, real = [], torch.cuda.CUDAGraph
+
+    def recorded(*args, **kwargs):
+        graph = real(*args, **dict(kwargs, keep_graph=True))
+        made.append(graph)
+        return graph
+
+    torch.cuda.CUDAGraph = recorded
+    try:
+        call()
+    finally:
+        torch.cuda.CUDAGraph = real
+    torch.cuda.synchronize()
+    if len(made) != 1:
+        raise AssertionError(f"expected one captured graph, {len(made)} were made")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "graph.dot")
+    made[0].debug_dump(path)
+    with open(path) as fh:
+        nodes = [ln for ln in fh if "->" not in ln]
+    os.remove(path)
+    counts = {k: sum(k in ln for ln in nodes) for k in names}
+    if not any(counts.values()):
+        sample = [ln[:300] for ln in nodes if "KERNEL" in ln.upper()][:3]
+        raise AssertionError(f"no path kernel node found in the graph's dump; nodes like {sample}")
+    return counts
 
 
 def state_agreement(torch, got, want, rtol=5e-3, atol=5e-5) -> dict:
@@ -1928,6 +1996,7 @@ def phase_graphs(torch, models, train, data, smi):
     line(f"phase 8a graphed iterations resnet101 256²/64²/21, K={GRAPH_K} replays vs eager", {
         "card": smi, "seconds": time.perf_counter() - t0, "da_batch_32_plus_32": da,
         "pretrain_batch_32": pre})
+    return da["times"]
 
 
 def phase_cli_chunked(torch, kernels, smi, cli, bf16: bool = False):
@@ -2299,6 +2368,558 @@ def phase_bf16_serving(torch, models, evaluate, smi):
         "graphs_captured": graphs, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
 
 
+# ------------------------------------------------------------------ phase 10
+PARALLEL_WORLD = 2  # ranks of phases 10b and 10c, sharing the card over gloo
+WORKER_TIMEOUT = 600  # seconds a phase-10 rank may take
+DATA_PARALLEL_ATOL = 1e-4  # 2 ranks vs 1 process (tests/test_parallel.py:60-83)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_env(port: int, rank: int, world: int, backend: str | None = None) -> dict:
+    """The ``DAHPE_*`` rendezvous of one rank on the loopback, explicit
+    timeouts; ``backend`` overrides the device's (NCCL on the card)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DAHPE_")}
+    env.update(DAHPE_COORDINATOR=f"127.0.0.1:{port}", DAHPE_NUM_PROCESSES=str(world),
+               DAHPE_PROCESS_ID=str(rank), DAHPE_DIST_INIT_TIMEOUT="300",
+               DAHPE_DIST_INIT_RETRIES="3")
+    if backend:
+        env["DAHPE_DIST_BACKEND"] = backend
+    return env
+
+
+def parallel_draws(torch, device, world: int = PARALLEL_WORLD):
+    """The global batch's draws for phase 10b, one set a domain: 32 row
+    indices, rank r's ``32 / world`` rows from the r-th of ``world`` equal
+    parts of the 256-row store (its shard), and their augmentation
+    draws."""
+    from dahpe_tpu_torch.data.device_aug import draw_augment_params
+
+    out = []
+    for domain in range(2):
+        gen = torch.Generator(device=device).manual_seed(31 + domain)
+        rows, shard = BATCH // world, 256 // world
+        idx = torch.cat([torch.randperm(shard, generator=gen, device=device)[:rows] + shard * r
+                         for r in range(world)])
+        out.append((idx, draw_augment_params(gen, BATCH, size=RAW)))
+    return out
+
+
+def worker_step(torch, device, rank, outdir):
+    """Phase 10b, one rank: its shards of phase 5's stores, its rows of the
+    global batch, one parallel DA iteration (counted, then timed), the
+    collectives timed alone, and the replicas compared. cuDNN
+    deterministic, as the world-1 iteration it is compared with."""
+    import torch.distributed as dist
+
+    from dahpe_tpu_torch import data, models, parallel, train
+    from dahpe_tpu_torch.ops import gaussian, pseudo_label, shear
+
+    torch.backends.cudnn.deterministic = True
+    kernels = Kernels(gaussian, pseudo_label, shear)
+    world = parallel.world_size()
+    stores = [data.DeviceDataStore(SyntheticSplit(256, RAW, seed=seed), device=device,
+                                   raw_size=RAW, verbose=False, shard=(rank, world))
+              for seed in (2, 3)]
+    model = build_model(torch, models, seed=9).to(device)
+    state = train.create_da_state(model, device=device, with_ema=True)
+    step = parallel.make_parallel_da_step(model, share_target_features=True, ema_decay=0.99)
+    part = BATCH // world
+    rows = slice(rank * part, (rank + 1) * part)
+
+    def batches():
+        return [store.train_batch_from(idx[rows] - store.n * rank,
+                                       {k: v[rows] for k, v in params.items()})
+                for store, (idx, params) in zip(stores, parallel_draws(torch, device, world))]
+
+    kernels.reset()
+    b_s, b_t = batches()
+    state, m = step(state, b_s, b_t)
+    torch.cuda.synchronize()
+    launches = kernels.read()
+    result = {"losses": {k: float(m[k]) for k in ("loss_s", "loss_gf", "loss_gt")},
+              "state": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+              "launches": launches,
+              "parameters_equal": parallel.assert_replicated(list(model.parameters())),
+              "state_tensors_equal": parallel.assert_replicated(state)}
+    snap = take(state, [])
+    iters = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, m = step(state, *batches())
+    torch.cuda.synchronize()
+    result["ms_per_iter"] = (time.perf_counter() - t0) * 1e3 / iters
+    # the collectives alone: each call between two synchronizes (so its
+    # time is its own, not its inputs'), in one more iteration
+    spent, real = [0.0, 0], {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t
+            spent[1] += 1
+            return out
+        return call
+
+    for name, fn in real.items():
+        setattr(dist, name, timed(fn))
+    try:
+        t0 = time.perf_counter()
+        state, m = step(state, *batches())
+        torch.cuda.synchronize()
+        synced_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+    put(torch, state, [], snap)
+    result.update(collective_calls_per_iter=spent[1], collective_ms_per_iter=spent[0] * 1e3,
+                  synchronized_iter_ms=synced_ms, collective_share=spent[0] * 1e3 / synced_ms)
+    return result
+
+
+def worker_cli(torch, device, rank, outdir):
+    """Phase 10c, one rank: ``cli.train --multihost --device-store`` at full
+    width on phase 6's cut data (its own log directory per rank, rank 0
+    alone may write): a pretrain epoch and a DA epoch cut by ``--max-steps
+    4``, in which rank 1 alone raises SIGTERM after its first DA call;
+    ``--resume`` to 4; a straight run from the pretrain checkpoint to 4.
+    cuDNN deterministic, for the bit-for-bit comparison."""
+    import signal
+
+    from dahpe_tpu_torch.cli import train as train_cli
+    from dahpe_tpu_torch.cli.args import build_parser
+    from dahpe_tpu_torch.ops import gaussian, pseudo_label, shear
+
+    register_cut_domains()
+    torch.backends.cudnn.deterministic = True
+    kernels = Kernels(gaussian, pseudo_label, shear)
+
+    def argv(name, *extra):
+        return build_parser("train").parse_args([
+            "unused", "-s", "SyntheticHandsSource", "-t", "SyntheticHandsTarget",
+            "-a", CLI_ARCH, "--device", CLI_DEVICE, "-b", str(BATCH), "--image-size", str(IMAGE),
+            "--heatmap-size", str(HEATMAP), "--device-store", "--with-ema", "--multihost",
+            "--print-freq", "2", "--workers", "4", "--seed", "3", "-i", "4", "--epochs", "1",
+            "--max-steps", "4", "--log", os.path.join(outdir, f"{name}_{rank}"), *extra])
+
+    steps = []
+    real = train_cli.make_fused_da_iteration
+
+    def signalling(*a, **kw):
+        call = real(*a, **kw)
+
+        def run(state, *gens):
+            out = call(state, *gens)
+            steps.append(out[0].step)
+            if rank == 1 and len(steps) == 1:  # rank 1 alone is told to stop
+                signal.raise_signal(signal.SIGTERM)
+            return out
+        return run
+
+    kernels.reset()
+    t0 = time.perf_counter()
+    train_cli.make_fused_da_iteration = signalling
+    try:
+        train_cli.main(argv("drain", "--pretrain-epochs", "1"))
+    finally:
+        train_cli.make_fused_da_iteration = real
+    drain = {"steps": list(steps), "seconds": time.perf_counter() - t0}
+    ckdir = os.path.join(outdir, f"drain_{rank}", "checkpoints")
+    t0 = time.perf_counter()
+    train_cli.main(argv("drain", "--resume", os.path.join(ckdir, "latest")))
+    resume_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_cli.main(argv("straight", "--pretrain", os.path.join(ckdir, "pretrain")))
+    torch.cuda.synchronize()
+    return {"drain": drain, "resume_s": resume_s, "straight_s": time.perf_counter() - t0,
+            "launches": kernels.read(),
+            "wrote": sorted(n for n in os.listdir(outdir) if n.endswith(f"_{rank}"))}
+
+
+WORKERS = {"step": worker_step, "cli": worker_cli}
+
+
+def worker_main(job: str, outdir: str) -> int:
+    """One rank of a phase-10 job (``chip_smoke.py --worker JOB DIR``):
+    bring-up through the ``DAHPE_*`` environment, the job, its result in
+    ``DIR/rank{r}.pt``."""
+    import torch
+
+    from dahpe_tpu_torch import parallel
+
+    device = parallel.robust_distributed_initialize(CLI_DEVICE)
+    try:
+        result = WORKERS[job](torch, device, parallel.rank(), outdir)
+        torch.save(result, os.path.join(outdir, f"rank{parallel.rank()}.pt"))
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def run_workers(torch, job: str, outdir: str, world: int = PARALLEL_WORLD,
+                backend: str = "gloo") -> list[dict]:
+    """``world`` ranks of ``job``, each a process of this script, over
+    ``backend``: gloo to share one card (NCCL refuses two ranks on one
+    device), NCCL for one rank a card; their logs in ``outdir``. Any rank
+    that fails fails the phase."""
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--worker", job,
+                               outdir], env=rank_env(port, r, world, backend),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        with open(os.path.join(outdir, f"rank{r}.log"), "w") as fh:
+            fh.write(out)
+        if p.returncode != 0:
+            raise AssertionError(f"phase 10 {job}: rank {r} exited {p.returncode}:\n{out[-3000:]}")
+    return [torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def phase_parallel_world1(torch, models, train, data, smi, phase5_ms, phase8a):
+    """Phase 10a: the data-parallel DA iteration at world size 1 over NCCL
+    (the ``DAHPE_*`` contract on the loopback, in this process), at phase
+    5's configuration. Every collective is issued at world 1 (the gradient
+    all-reduces, the metrics' mean), so NCCL runs; batch norm is the local
+    layer. cuDNN deterministic for the checks, whose noise floors (the same
+    runs twice) must be bit for bit: 2 iterations equal the iteration
+    without a group bit for bit, and a K = 4 graph with the NCCL
+    collectives captured equals 4 eager calls bit for bit and holds the
+    path kernels of one eager iteration as nodes. Then, at cuDNN's
+    defaults as phases 5 and 8a run, ms/iter at K = 1 with and without the
+    collectives in turns and at K = 4 replayed, NCCL's device time, the
+    collective calls an iteration issues and its host syncs."""
+    import torch.distributed as dist
+
+    from dahpe_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    saved_env = {k: v for k, v in os.environ.items() if k.startswith("DAHPE_")}
+    os.environ.update(rank_env(free_port(), 0, 1))
+    parallel.robust_distributed_initialize(CLI_DEVICE)
+    try:
+        if (dist.get_backend() != parallel.distributed.backend_for(CLI_DEVICE)
+                or dist.get_world_size() != 1):
+            raise AssertionError(f"10a: {dist.get_backend()} over {dist.get_world_size()} ranks")
+        stores = [data.DeviceDataStore(SyntheticSplit(256, RAW, seed=seed), device=CLI_DEVICE,
+                                       raw_size=RAW, verbose=False) for seed in (2, 3)]
+        model = build_model(torch, models, seed=9).to(CLI_DEVICE)
+        state = train.create_da_state(model, device=CLI_DEVICE, with_ema=True)
+        gens = [stores[0].generator(11), stores[1].generator(12)]
+        collectives = parallel.data_parallel(model)  # world 1: batch norm stays local
+
+        def make_call(k, with_group=True):
+            extra = collectives if with_group else {}
+            fused = train.make_fused_da_iteration(model, stores[0], stores[1], BATCH,
+                                                  steps_per_call=k, share_target_features=True,
+                                                  ema_decay=0.99, **extra)
+            return lambda: fused(state, *gens)[1]
+
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            plain, single = make_call(1, with_group=False), make_call(1)
+            for fn in (plain, plain, single):  # cuDNN's algorithms; NCCL's communicator
+                fn()
+            snap = take(state, gens)
+            runs = {}
+            for name, fn in (("no_group", plain), ("world_1", single), ("no_group_again", plain)):
+                put(torch, state, gens, snap)
+                fn()
+                fn()
+                runs[name] = take(state, gens)
+            floor = state_agreement(torch, runs["no_group_again"][0], runs["no_group"][0])
+            vs_no_group = state_agreement(torch, runs["world_1"][0], runs["no_group"][0])
+            if not all(torch.equal(a, b) for a, b in zip(runs["world_1"][2], runs["no_group"][2])):
+                raise AssertionError("10a: the generators differ from the run without a group")
+            # the bit-for-bit checks need a bit-for-bit floor: without one they
+            # could not tell a dropped launch from noise
+            if not floor["bit_equal"]:
+                raise AssertionError(f"10a: two runs without a group differ with cuDNN "
+                                     f"deterministic: {floor}")
+            if not vs_no_group["bit_equal"]:
+                raise AssertionError(f"10a: world 1 over NCCL differs from the iteration without "
+                                     f"a group: {vs_no_group}")
+            # K = 4: the captured graph (NCCL inside) against 4 eager calls
+            eager = []
+            for _ in range(2):
+                put(torch, state, gens, snap)
+                for _ in range(GRAPH_K):
+                    single()
+                eager.append(take(state, gens))
+            chunked = make_call(GRAPH_K)
+            put(torch, state, gens, snap)
+            chunked()  # the first call: GRAPH_K eager iterations on the capture's stream
+            put(torch, state, gens, snap)
+            # the capture, then GRAPH_K replays; the graph's kernel nodes counted
+            per_graph = graph_kernel_nodes(torch, chunked, PATH_KERNEL_NAMES)
+            graphed = take(state, gens)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        eager_floor = state_agreement(torch, eager[1][0], eager[0][0])
+        replay = state_agreement(torch, graphed[0], eager[0][0])
+        if graphed[1] != eager[0][1] or not all(torch.equal(a, b)
+                                                for a, b in zip(graphed[2], eager[0][2])):
+            raise AssertionError("10a: the replayed chunk's step or generators differ")
+        if not eager_floor["bit_equal"]:
+            raise AssertionError(f"10a: two eager runs differ with cuDNN deterministic: "
+                                 f"{eager_floor}")
+        if not replay["bit_equal"]:
+            raise AssertionError(f"10a: the graph with NCCL inside differs from eager: {replay}")
+        chunked = make_call(GRAPH_K)
+        chunked()
+        chunked()
+        plain()
+        single()  # at cuDNN's defaults
+        # eager with and without the collectives in turns, then replayed
+        times = {}
+        for name, fn in (("k1_no_group", plain), ("k1_world_1", single),
+                         ("k1_world_1", single), ("k1_no_group", plain)):
+            times.setdefault(name, []).append(timed_calls(torch, fn, 5, 1, 2 * BATCH))
+        times[f"k{GRAPH_K}_world_1_replayed"] = timed_calls(torch, chunked, 2, GRAPH_K,
+                                                            2 * BATCH)
+        eager_profile = device_profile(torch, single)
+        replay_profile = device_profile(torch, chunked)
+        nccl = {}
+        for name, prof in (("k1_eager", eager_profile), (f"k{GRAPH_K}_replayed", replay_profile)):
+            per = 1 if name == "k1_eager" else GRAPH_K
+            nccl[name] = {"nccl_kernel_ms_per_iter": prof.get("by_kind_ms", {}).get(
+                "collective", 0.0) / per, "device_busy_ms_per_iter": prof.get(
+                "device_busy_ms", 0.0) / per, "idle_share": prof.get("idle_share"),
+                "top_ms": prof.get("top_ms")}
+        # the collective calls one eager iteration issues (at one rank NCCL
+        # may launch no kernel of its own for them)
+        issued, real = {}, {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+        def counting(name, fn):
+            def call(*a, **kw):
+                issued[name] = issued.get(name, 0) + 1
+                return fn(*a, **kw)
+            return call
+
+        for name, fn in real.items():
+            setattr(dist, name, counting(name, fn))
+        try:
+            single()
+        finally:
+            for name, fn in real.items():
+                setattr(dist, name, fn)
+        if not issued.get("all_reduce"):
+            raise AssertionError(f"10a: the iteration issued no all-reduce: {issued}")
+        # host syncs in one eager iteration, as torch's sync debug mode reports them
+        import warnings
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                single()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sorted({str(w.message).splitlines()[0][:120] for w in caught
+                        if "synchronizing CUDA operation" in str(w.message)})
+        per_eager = {k: eager_profile["port_kernel_launches"][k] for k in PATH_KERNEL_NAMES}
+        per_replay = {k: replay_profile["port_kernel_launches"][k] / GRAPH_K
+                      for k in PATH_KERNEL_NAMES}
+        # what a replay runs is the captured graph's kernel nodes, read from
+        # the graph itself; the profiler's count of a replay is reported
+        # beside them (one full run's profile on an NVIDIA H100 80GB HBM3 at
+        # 700 W listed 6.5 / 2.25 / 2)
+        if per_eager != dict(zip(PATH_KERNEL_NAMES, (7, 3, 2))) or per_graph != per_eager:
+            raise AssertionError(f"10a: path kernel nodes in the captured graph {per_graph}, "
+                                 f"per eager iteration {per_eager}")
+        line("phase 10a data parallel world 1 over NCCL resnet101 256²/64²/21, batch 32+32", {
+            "card": smi, "seconds": time.perf_counter() - t0, "backend": dist.get_backend(),
+            "vs_no_group_2_iters": {"generators_equal": True, **vs_no_group},
+            "no_group_vs_no_group": floor, "cudnn_deterministic_for_the_checks": True,
+            "graph_vs_eager": {"generators_equal": True, "steps_equal": True, **replay},
+            "eager_vs_eager": eager_floor, "times": times,
+            "phase5_no_group_ms_per_iter": phase5_ms, "phase8a_no_group_times": phase8a,
+            "collectives": nccl, "collective_calls_per_iter": issued, "host_syncs": syncs,
+            "path_kernels_per_eager_iteration": per_eager,
+            "path_kernel_nodes_in_the_graph": per_graph,
+            "path_kernels_per_replay_profiled": per_replay})
+        return stores
+    finally:
+        parallel.shutdown()
+        for k in [k for k in os.environ if k.startswith("DAHPE_")]:
+            del os.environ[k]
+        os.environ.update(saved_env)
+
+
+def phase_parallel_two_ranks(torch, models, train, smi, stores, root,
+                             world: int = PARALLEL_WORLD, backend: str = "gloo"):
+    """Phase 10b: two ranks sharing the card over gloo (or, with ``--cards``,
+    one rank a card over NCCL), one DA iteration at global batch 32+32
+    (32/W + 32/W a rank, each rank's rows from its shard) against the same
+    iteration at world 1 on the same global batch, from the same weights:
+    losses within rel 1e-4, every parameter and BN statistic within
+    ``DATA_PARALLEL_ATOL``; the ranks' launches (7 / 3 / 2 an iteration),
+    ms/iter and the collectives' share. cuDNN deterministic on both sides:
+    at its defaults some algorithms sum in a varying order, and the
+    world-1 iteration alone then moved a BN statistic by 9.2e-5 between
+    runs on an NVIDIA H100 80GB HBM3 at 700 W, so the gap would be noise. Beside the gap, the world-1
+    iteration at cuDNN's defaults against the deterministic one."""
+    t0 = time.perf_counter()
+    ranks = run_workers(torch, "step", os.path.join(root, "10b"), world, backend)
+    b_s, b_t = [store.train_batch_from(idx, params)
+                for store, (idx, params) in zip(stores, parallel_draws(torch, CLI_DEVICE, world))]
+
+    def world_1(deterministic):
+        model = build_model(torch, models, seed=9).to(CLI_DEVICE)  # the ranks' weights
+        state = train.create_da_state(model, device=CLI_DEVICE, with_ema=True)
+        step = train.make_da_train_step(model, share_target_features=True, ema_decay=0.99)
+        default = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            state, m = step(state, b_s, b_t)
+        finally:
+            torch.backends.cudnn.deterministic = default
+        return ({k: float(m[k]) for k in ("loss_s", "loss_gf", "loss_gt")},
+                {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                {n for n, _ in model.named_parameters()})
+
+    want, ref, params = world_1(True)
+
+    def gap(got):
+        """The worst |Δ| of each kind against ``ref``, and where: (tensor,
+        its largest |value|)."""
+        worst, at = {"parameters": 0.0, "bn_statistics": 0.0}, {}
+        for k, v in ref.items():
+            if v.is_floating_point():
+                kind = "parameters" if k in params else "bn_statistics"
+                diff = float((got[k] - v).abs().max())
+                if diff > worst[kind]:
+                    worst[kind], at[kind] = diff, (k, float(v.abs().max()))
+        return {"worst_abs": worst, "at_tensor_and_its_largest_abs": at}
+
+    floor = gap(world_1(False)[1])
+    worst = {"worst_abs": {"parameters": 0.0, "bn_statistics": 0.0}}
+    for r, res in enumerate(ranks):
+        rel = max(abs(res["losses"][k] - v) / abs(v) for k, v in want.items())
+        if not rel <= 1e-4:
+            raise AssertionError(f"10b: rank {r} losses {res['losses']} vs world 1 {want}")
+        mine = gap(res["state"])
+        if max(mine["worst_abs"].values()) > max(worst["worst_abs"].values()):
+            worst = mine
+        expected = dict(NO_LAUNCHES, render_gaussian=7, pseudo_labels=3, rotate3_fused=2)
+        if res["launches"] != expected:
+            raise AssertionError(f"10b: rank {r} launches {res['launches']}, expected {expected}")
+    if not max(worst["worst_abs"].values()) <= DATA_PARALLEL_ATOL:
+        raise AssertionError(f"10b: {world} ranks vs world 1 {worst}; world 1 at cuDNN's "
+                             f"defaults vs deterministic {floor}")
+    keys = ("ms_per_iter", "collective_calls_per_iter", "collective_ms_per_iter",
+            "synchronized_iter_ms", "collective_share", "parameters_equal",
+            "state_tensors_equal", "launches")
+    where = ("sharing the card over gloo" if backend == "gloo"
+             else f"one a card over {backend}")
+    line(f"phase 10b data parallel {world} ranks {where}, resnet101, batch 32+32", {
+        "card": smi, "seconds": time.perf_counter() - t0, "losses_world_1": want,
+        "losses_rank_0": ranks[0]["losses"], "vs_world_1": worst,
+        "cudnn_deterministic": True, "world_1_default_vs_deterministic": floor,
+        "bound": DATA_PARALLEL_ATOL, "ranks": [{k: res[k] for k in keys} for res in ranks]})
+    return [res["launches"] for res in ranks]
+
+
+def phase_parallel_cli(torch, smi, root):
+    """Phase 10c: ``cli.train --multihost`` on two ranks sharing the card over
+    gloo (``worker_cli``): SIGTERM to rank 1 alone drains both at one step,
+    rank 0 alone writes, and ``--resume`` ends bit for bit where a straight
+    run from the same warm start ends."""
+    from dahpe_tpu_torch.utils import checkpoint as ckpt
+    from dahpe_tpu_torch.utils import fast_ckpt
+
+    t0 = time.perf_counter()
+    outdir = os.path.join(root, "10c")
+    ranks = run_workers(torch, "cli", outdir)
+    drained = [res["drain"]["steps"] for res in ranks]
+    if drained[0] != drained[1] or drained[0][-1] != 2:
+        raise AssertionError(f"10c: the ranks drained after steps {drained}, expected both at 2")
+    if ranks[0]["wrote"] != ["drain_0", "straight_0"] or ranks[1]["wrote"]:
+        raise AssertionError(f"10c: directories written {[r['wrote'] for r in ranks]}")
+    resumed = os.path.join(outdir, "drain_0", "checkpoints", "latest")
+    straight = os.path.join(outdir, "straight_0", "checkpoints", "latest")
+    flat_r = fast_ckpt.flatten_tree(fast_ckpt.load_packed_tree(resumed))
+    flat_s = fast_ckpt.flatten_tree(fast_ckpt.load_packed_tree(straight))
+    if [p for p, _ in flat_r] != [p for p, _ in flat_s]:
+        raise AssertionError("10c: the resumed and straight checkpoints hold different trees")
+    unequal = ["/".join(p) for (p, a), (_, b) in zip(flat_r, flat_s) if not torch.equal(a, b)]
+    if unequal:
+        raise AssertionError(f"10c: resumed differs from straight at {unequal[:5]}")
+    aux_r, aux_s = ckpt.load_aux(resumed), ckpt.load_aux(straight)
+    if not all(aux_r[k].shape[0] == PARALLEL_WORLD and np.array_equal(aux_r[k], aux_s[k])
+               for k in ("key_s", "key_t")):
+        raise AssertionError("10c: the ranks' sampling states did not continue")
+    # per rank: pretrain 4 steps (1 + 1) and 2 val batches (1), DA 2 + 2 + 4
+    # iterations (7 / 3 / 2)
+    expected = dict(NO_LAUNCHES, render_gaussian=4 + 2 + 7 * 8, pseudo_labels=3 * 8,
+                    rotate3_fused=4 + 2 * 8)
+    for r, res in enumerate(ranks):
+        if res["launches"] != expected:
+            raise AssertionError(f"10c: rank {r} launches {res['launches']}, expected {expected}")
+    shutil.rmtree(outdir, ignore_errors=True)  # the checkpoints: several GB
+    line("phase 10c training CLI --multihost, 2 ranks over gloo, resnet101 256²/64², batch 32", {
+        "card": smi, "seconds": time.perf_counter() - t0, "drained_after_steps": drained,
+        "only_rank_0_wrote": True, "resume_bit_equal": True,
+        "tensors_compared": len(flat_r),
+        "ranks": [{k: res[k] for k in ("drain", "resume_s", "straight_s", "launches")}
+                  for res in ranks]})
+    return [res["launches"] for res in ranks]
+
+
+def phase_serve_mesh(torch, smi, root):
+    """Phase 10d: ``cli.serve --mesh`` on the float artifact in ``root``
+    (phase 7's), against the server without it, at 1, 8 and 32 frames:
+    equal coordinates. ``root`` is deleted after."""
+    from dahpe_tpu_torch.cli import serve
+
+    t0 = time.perf_counter()
+    artifact = os.path.join(root, "float.pt2")
+    servers = [serve.create_server(serve.build_serve_parser().parse_args(
+        [artifact, "--port", "0", *extra])) for extra in ((), ("--mesh",))]
+    rng = np.random.default_rng(101)
+    results = {}
+    try:
+        for n in (1, 8, 32):
+            frames = rng.integers(0, 256, (n, IMAGE, IMAGE, 3), dtype=np.uint8)
+            (c0, m0), (c1, m1) = [s.servable.run_arrays(frames) for s in servers]
+            if not np.array_equal(c0, c1):
+                raise AssertionError(f"10d: --mesh coordinates differ at {n} frames")
+            results[n] = {"coords_equal": True, "maxvals_max_abs": float(np.abs(m0 - m1).max()),
+                          "mesh_dispatch_ms": host_ms(torch, lambda: servers[1].servable
+                                                      .run_arrays(frames), 10)}
+        info = servers[1].servable.info()
+    finally:
+        for s in servers:
+            s.server_close()
+    shutil.rmtree(root, ignore_errors=True)
+    line(f"phase 10d cli.serve --mesh over {len(info['devices'])} card(s), float artifact "
+         "resnet101 256²/64²/21", {
+        "card": smi, "seconds": time.perf_counter() - t0, "devices": info["devices"],
+        "graphs": info["graphs"], "frames": results})
+
+
 def main() -> int:
     import torch
 
@@ -2357,7 +2978,7 @@ def main() -> int:
     # runs at cuDNN's default, as phases 5 and 6 do
     torch.backends.cudnn.deterministic = False
     kernels.reset()  # main path 5: the DA and pretrain iterations replayed from CUDA graphs
-    phase_graphs(torch, models, train, data, smi)
+    phase8a = phase_graphs(torch, models, train, data, smi)
     for name, count in kernels.read().items():
         if name in PATH_KERNELS and count == 0:
             raise AssertionError(f"{name} kernel never launched on the graphed paths")
@@ -2397,6 +3018,33 @@ def main() -> int:
             raise AssertionError(f"{name} kernel never launched on the bf16 adaptation path")
         launches[name] += count
     line("phase 9 bf16", {"card": smi, "phase_9_s": time.perf_counter() - t9})
+    torch.cuda.empty_cache()
+
+    # phase 10: data parallelism
+    t10 = time.perf_counter()
+    kernels.reset()  # main path 11: the data-parallel DA iteration, world 1 over NCCL
+    stores = phase_parallel_world1(torch, models, train, data, smi, bare_ms, phase8a)
+    for name, count in kernels.read().items():
+        if name in PATH_KERNELS and count == 0:
+            raise AssertionError(f"{name} kernel never launched on the data-parallel path")
+        launches[name] += count
+    torch.cuda.empty_cache()
+    root10 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                          "chip_smoke_parallel")
+    # main paths 12 and 13: two ranks' iteration and the CLI, each rank a
+    # process of its own that counts its launches from 0
+    rank_launches = phase_parallel_two_ranks(torch, models, train, smi, stores, root10)
+    del stores
+    torch.cuda.empty_cache()
+    rank_launches += phase_parallel_cli(torch, smi, root10)
+    for counts in rank_launches:
+        for name, count in counts.items():
+            launches[name] += count
+    # no path kernel: frames in, no targets
+    phase_serve_mesh(torch, smi, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                              "build", "chip_smoke_serving"))
+    shutil.rmtree(root10, ignore_errors=True)
+    line("phase 10 data parallel", {"card": smi, "phase_10_s": time.perf_counter() - t10})
 
     sources = {
         "render_gaussian": ("render_gaussian.cu", "dahpe_tpu/ops/pallas/gaussian.py:45"),
@@ -2426,5 +3074,49 @@ def main() -> int:
     return 0
 
 
+def main_cards() -> int:
+    """``chip_smoke.py --cards``, on a machine with several cards: the
+    phases that need every card. ``cli.serve --mesh`` over every card
+    against one card on a freshly exported float artifact (uint8 ingest,
+    batch-polymorphic), then phase 10b with one rank a card over NCCL
+    against world 1. The kernels are built as in phase 1; the last line is
+    the one of a full run."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --cards: needs at least two CUDA devices", file=sys.stderr)
+        return 2
+    from dahpe_tpu_torch import data, models, serving, train
+    from dahpe_tpu_torch.ops import _build
+
+    smi = phase_device(torch, _build)
+    world = torch.cuda.device_count()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "build", "chip_smoke_cards")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    model = build_model(torch, models).to(CLI_DEVICE)
+    artifact = os.path.join(root, "float.pt2")
+    serving.save_predict(artifact, model, image_size=IMAGE, heatmap_size=HEATMAP,
+                         uint8_input=True, device=CLI_DEVICE)
+    serving.save_variables_npz(artifact + ".weights.npz", model)
+    del model
+    torch.cuda.empty_cache()
+    phase_serve_mesh(torch, smi, root)
+    stores = [data.DeviceDataStore(SyntheticSplit(256, RAW, seed=seed), device=CLI_DEVICE,
+                                   raw_size=RAW, verbose=False) for seed in (2, 3)]
+    phase_parallel_two_ranks(torch, models, train, smi, stores, root, world, "nccl")
+    shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:  # one rank of phase 10 (run_workers)
+        sys.exit(worker_main(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--cards"]:
+        sys.exit(main_cards())
     sys.exit(main())

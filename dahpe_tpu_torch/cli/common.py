@@ -2,7 +2,8 @@
 the ``--debug`` visualiser.
 
 Port of ``dahpe_tpu/cli/common.py``. One process drives one device
-(``--device``); the JAX package's compile cache has no counterpart.
+(``--device``; under ``--multihost`` each rank its own, and its share of
+the global batch); the JAX package's compile cache has no counterpart.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import os
 import numpy as np
 import torch
 
-from dahpe_tpu_torch import models
+from dahpe_tpu_torch import models, parallel
 from dahpe_tpu_torch.data import BatchLoader, DecodedCache, get_dataset
 from dahpe_tpu_torch.data import transforms as T
 
@@ -21,8 +22,6 @@ from dahpe_tpu_torch.data import transforms as T
 _UNPORTED = {
     "host_warp": "--host-warp (the native fused host warp) is not ported yet "
                  "(ROADMAP.md queue 1 item 8)",
-    "multihost": "--multihost (multi-process data parallelism) is not ported yet "
-                 "(ROADMAP.md queue 1 item 11)",
 }
 
 
@@ -44,12 +43,20 @@ def validate_steps_per_call(args) -> int:
     host-fed paths need a host round trip per step) and cadences that are
     multiples of K, as in the JAX package; ``--debug`` draws the batches of
     every printed step on the host, so it runs one step a call. A K below 1
-    is rejected (the JAX package coerces it to 1)."""
+    is rejected (the JAX package coerces it to 1). Under ``--multihost`` on
+    gloo with more than one rank (``DAHPE_DIST_BACKEND=gloo``), a card
+    cannot capture the collectives, so K > 1 is refused there."""
     k = int(args.steps_per_call)
     if k < 1:
         raise SystemExit(f"--steps-per-call {k}: K must be at least 1")
     if k == 1:
         return k
+    if (getattr(args, "multihost", False) and torch.device(args.device).type == "cuda"
+            and parallel.distributed.backend_for(args.device) == "gloo"
+            and parallel.distributed.planned_world_size() > 1):
+        raise SystemExit(
+            f"--steps-per-call {k} under gloo: gloo's collectives cannot be captured in a "
+            "CUDA graph; run K = 1 on gloo, or NCCL with one card per rank")
     if not args.device_store:
         raise SystemExit(
             f"--steps-per-call {k} needs --device-store: only the fused iteration "
@@ -69,6 +76,17 @@ def validate_steps_per_call(args) -> int:
             f"--steps-per-call {k}: {', '.join(bad)} must be multiples of K: chunk "
             "boundaries are the only report, checkpoint and stop points of a chunked run")
     return k
+
+
+def check_world(args, world: int) -> None:
+    """The global batch ``-b`` must split into equal rank batches: the
+    gradient is the mean of the ranks' local means, which is the global
+    mean only when every rank holds as many rows."""
+    if args.batch_size % world:
+        raise SystemExit(
+            f"-b {args.batch_size} does not split over {world} ranks: each rank holds "
+            "batch/W rows, and the mean of the ranks' means is the global mean only "
+            "for equal shares; make the batch a multiple of the world size")
 
 
 def build_model(args, multi_head: bool = True) -> torch.nn.Module:
@@ -129,15 +147,18 @@ def maybe_decoded_cache(args, dataset, *, raw_size: int = 288):
 
 
 def build_train_loader(args, dataset, *, seed_offset: int = 0, mode: str = "pil"):
-    """One shuffled train loader in the requested pipeline mode."""
+    """One shuffled train loader in the requested pipeline mode. Under
+    ``--multihost`` each rank loads a disjoint shard of every epoch and its
+    ``batch / W`` rows of the global batch."""
     if mode not in ("pil", "raw"):
         raise ValueError(f"unknown train loader mode {mode!r}")
     if mode == "raw":
         # the PIL mode is the reference-parity path, uncached on purpose
         dataset = maybe_decoded_cache(args, dataset)
-    return BatchLoader(dataset, args.batch_size, shuffle=True, drop_last=True,
+    world = parallel.world_size()
+    return BatchLoader(dataset, args.batch_size // world, shuffle=True, drop_last=True,
                        num_workers=args.workers, seed=args.seed + seed_offset,
-                       raw=mode == "raw")
+                       raw=mode == "raw", host_index=parallel.rank(), host_count=world)
 
 
 def build_val_loader(args, dataset):

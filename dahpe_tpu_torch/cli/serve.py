@@ -27,6 +27,13 @@ copied to the host before the lock is released. A failed capture answers
 eagerly. A server on the card sets cuDNN deterministic, so one request
 always gets the same answer.
 
+``--mesh`` splits every padded batch into one equal chunk per local card
+(``serving.MeshPredict``): the artifact is loaded for each card and the
+weights put on each card once, each card runs its chunk as its own CUDA
+graph (one per card and bucket), and the coordinates and confidences are
+gathered on the first card. On a host with one card it is the
+single-device server.
+
 ``--batch-window MS`` turns on dynamic batching: a collector thread
 coalesces concurrent requests into one dispatch, when the compiled batch
 (or ``--max-batch``) fills or MS milliseconds after the first queued
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from dahpe_tpu_torch import resolve_device
+from dahpe_tpu_torch.parallel import create_mesh
 
 
 class DispatchError(RuntimeError):
@@ -66,8 +74,8 @@ def _pow2_bucket(n: int) -> int:
 def _pad_target(n: int, compiled_batch: int | None, n_devices: int = 1) -> int:
     """Rows to pad an ``n``-row request to before dispatch: the compiled
     batch of a fixed-batch artifact, else the next power-of-two bucket,
-    rounded up to a multiple of the device count (one device until ROADMAP
-    queue 1 item 11 ports ``--mesh``)."""
+    rounded up to a multiple of the device count (``--mesh`` splits it into
+    equal chunks)."""
     if compiled_batch is not None:
         return compiled_batch
     target = _pow2_bucket(n)
@@ -84,7 +92,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default: the card)")
     p.add_argument("--mesh", action="store_true",
-                   help="shard request batches over all local devices; not ported yet")
+                   help="split request batches over all local cards (weights on each, "
+                        "one equal chunk per card)")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip the startup capture (first request pays it)")
     p.add_argument("--batch-window", type=float, default=0.0, metavar="MS",
@@ -109,18 +118,26 @@ class _Servable:
     """The loaded artifact + its request contract, shared by all handler
     threads."""
 
-    def __init__(self, artifact_path: str, *, device=None, warmup: bool = True):
+    def __init__(self, artifact_path: str, *, device=None, warmup: bool = True,
+                 mesh: bool = False):
         from dahpe_tpu_torch import serving
         from dahpe_tpu_torch.quant import to_torch
 
         self.device = resolve_device(device)
+        devices = [self.device]
+        if mesh:  # every local device of the serving device's type
+            devices = [d for d in create_mesh() if d.type == self.device.type] or devices
         if self.device.type == "cuda":
             # deterministic cuDNN: otherwise some float32 convolution
             # algorithms sum in a varying order, so two answers to one
             # request differ in the last bits (measured on the H100) and a
             # graph replay cannot be held to eager execution
             torch.backends.cudnn.deterministic = True
-        self.predict = serving.load_predict_file(artifact_path, device=self.device)
+        # one copy of the program a device (an exported program names its
+        # device), the batch split over them and gathered on the first
+        self.mesh = serving.make_mesh_predict(
+            [serving.load_predict_file(artifact_path, device=d) for d in devices], devices)
+        self.devices, self.predict = self.mesh.devices, self.mesh.predicts[0]
         self.weights = to_torch(serving.load_artifact_weights(artifact_path + ".weights.npz"),
                                 self.device)
         meta = self.predict.meta
@@ -128,10 +145,13 @@ class _Servable:
         self.batch = meta["batch"]  # None: polymorphic
         self.frame_shape = tuple(meta["frame_shape"])  # (H, W, 3)
         self.dtype = np.dtype(meta["dtype"])
+        if self.batch is not None and len(self.devices) > 1:
+            raise SystemExit(f"--mesh over {len(self.devices)} cards needs a batch-polymorphic "
+                             f"artifact: this one runs batch {self.batch} only")
         self._lock = threading.Lock()
         self._count_lock = threading.Lock()
-        self._graphs: dict[int, _Graph] = {}
-        self._pool = None
+        self._graphs: dict[int, list[_Graph]] = {}
+        self._pools: dict[torch.device, tuple] = {}
         self.requests = 0   # /predict calls answered 200
         self.batches = 0    # device dispatches — ≤ requests under batching
         if warmup and self.batch is not None:
@@ -145,7 +165,7 @@ class _Servable:
             "batch": self.batch,  # null = batch-polymorphic
             "frame_shape": list(self.frame_shape),
             "dtype": str(self.dtype),
-            "devices": [str(self.device)],
+            "devices": [str(d) for d in self.devices],
             "graphs": sorted(self._graphs),
             "requests": self.requests,
             "batches": self.batches,
@@ -164,39 +184,51 @@ class _Servable:
                                 f"{self.batch} (export batch-polymorphic for unbounded "
                                 "requests)")
 
-    def _capture(self, batch: int) -> _Graph:
-        """Capture the artifact at ``batch`` rows into a CUDA graph after one
-        eager warm-up call on a side stream (cuDNN and cuBLAS pick their
+    def _capture(self, batch: int) -> list[_Graph]:
+        """Capture the artifact at ``batch`` rows (``batch / n`` on each of
+        the ``n`` cards) into one CUDA graph per card, each after one eager
+        warm-up call on a side stream (cuDNN and cuBLAS pick their
         algorithms and workspaces outside the capture)."""
-        frames = torch.zeros((batch,) + self.frame_shape, dtype=self.predict.dtype,
-                             device=self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self.predict(self.weights, frames)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            coords, maxvals = self.predict(self.weights, frames)
-        self._graphs[batch] = _Graph(graph, frames, coords, maxvals)
-        return self._graphs[batch]
+        rows, graphs = batch // len(self.devices), []
+        for device, predict, weights in zip(self.devices, self.mesh.predicts,
+                                            self.mesh.weights_on(self.weights)):
+            with torch.cuda.device(device):
+                frames = torch.zeros((rows,) + self.frame_shape, dtype=predict.dtype,
+                                     device=device)
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    predict(weights, frames)
+                torch.cuda.current_stream(device).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                # one pool a card: a pool belongs to the device it was made
+                # on; and the capture runs on this card's side stream, since
+                # torch's default capture stream lives on the card that was
+                # current when the first graph was made
+                with torch.cuda.graph(graph, stream=side, pool=self._pools.setdefault(
+                        device, torch.cuda.graph_pool_handle())):
+                    coords, maxvals = predict(weights, frames)
+                graphs.append(_Graph(graph, frames, coords, maxvals))
+        self._graphs[batch] = graphs
+        return graphs
 
     def _execute(self, frames: np.ndarray):
         """Run padded ``frames`` (under the dispatch lock): eagerly on the
         CPU, as the CUDA graph of their batch on the card. Returns numpy
         ``(coords, maxvals)``."""
         if self.device.type != "cuda":
-            coords, maxvals = self.predict(self.weights, torch.from_numpy(frames))
+            coords, maxvals = self.mesh(self.weights, torch.from_numpy(frames))
             return coords.numpy(), maxvals.float().numpy()
-        with torch.cuda.device(self.device):
-            g = self._graphs.get(frames.shape[0]) or self._capture(frames.shape[0])
-            g.frames.copy_(torch.from_numpy(frames))
-            g.graph.replay()
-            # copied out before the lock is released: the next replay of any
-            # graph of the shared pool may reuse this memory
-            return g.coords.cpu().numpy(), g.maxvals.cpu().float().numpy()
+        graphs = self._graphs.get(frames.shape[0]) or self._capture(frames.shape[0])
+        for g, chunk in zip(graphs, self.mesh.split(frames)):
+            with torch.cuda.device(g.frames.device):
+                g.frames.copy_(torch.from_numpy(chunk))
+                g.graph.replay()  # the cards run their chunks side by side
+        # gathered on the first card and copied out before the lock is
+        # released: the next replay of a graph of the same pool may reuse
+        # this memory
+        coords, maxvals = self.mesh.gather([(g.coords, g.maxvals) for g in graphs])
+        return coords.cpu().numpy(), maxvals.cpu().float().numpy()
 
     def run_arrays(self, frames: np.ndarray):
         """One device dispatch: pad to the compiled batch (fixed-batch
@@ -205,7 +237,7 @@ class _Servable:
         predict, return the live rows as numpy ``(coords (n, K, 2), maxvals
         (n, K))``."""
         n = frames.shape[0]
-        target = _pad_target(n, self.batch)
+        target = _pad_target(n, self.batch, len(self.devices))
         if n < target:
             frames = np.concatenate(
                 [frames, np.zeros((target - n,) + self.frame_shape, self.dtype)])
@@ -356,10 +388,8 @@ class _DrainingHTTPServer(ThreadingHTTPServer):
 
 
 def create_server(args) -> ThreadingHTTPServer:
-    if args.mesh:
-        raise SystemExit("--mesh (batches sharded over several devices) is not ported yet "
-                         "(ROADMAP.md queue 1 item 11)")
-    servable = _Servable(args.artifact, device=args.device, warmup=not args.no_warmup)
+    servable = _Servable(args.artifact, device=args.device, warmup=not args.no_warmup,
+                         mesh=args.mesh)
     batcher = (_Batcher(servable, args.batch_window / 1e3, args.max_batch)
                if args.batch_window > 0 else None)
     server = _DrainingHTTPServer((args.host, args.port), _make_handler(servable, batcher))
@@ -382,7 +412,7 @@ def main(args):
     batching = f", dynamic batching {args.batch_window:g} ms" if args.batch_window > 0 else ""
     print(f"serving {args.artifact} ({info['kind']}, batch {b}, {info['dtype']} "
           f"{tuple(info['frame_shape'])}) on http://{host}:{port} "
-          f"[{info['devices'][0]}{batching}]", flush=True)
+          f"[{', '.join(info['devices'])}{batching}]", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -8,6 +8,17 @@ checkpoints, a best copy, a graceful stop on SIGTERM/SIGINT and a
 ``--resume`` that continues the run where it stopped. One process drives one
 device (``--device``, default ``cuda``).
 
+``--multihost`` runs W processes as one data-parallel job (the
+``DAHPE_*`` environment contract of ``parallel/distributed.py``, or
+``torchrun``'s): each rank drives its own device and holds ``batch / W``
+rows of the global batch (its shard of each store, or of each epoch of the
+host loaders), batch norm takes global statistics and every SGD step
+averages the gradients over the ranks, so parameters, momentum and EMA stay
+equal on every rank. Rank 0 alone reads the warm start or the resume point
+(and broadcasts it), logs, prints and writes checkpoints; the sidecar holds
+every rank's sampling states. Validation runs on every rank over the whole
+split.
+
 Input modes of the DA loop: ``pil`` (host PIL transforms, targets on the
 device), ``raw`` (``--device-aug``: host decode only, augmentation on the
 device through the rotation kernel) and ``--device-store`` (the fused
@@ -26,13 +37,14 @@ one iteration a call, whose batches the fused call returns.
 
 Deliberate divergences from the JAX package's CLI: ``--steps-per-call`` is
 checked before anything runs on every input mode, and a K below 1 is
-rejected, not coerced; the stop poller is the single-process local check
-(multi-process runs are not ported). Flags whose paths are not ported raise
-``SystemExit`` naming their ROADMAP item.
+rejected, not coerced; the stop poller's cadence counts steps, not calls.
+Flags whose paths are not ported raise ``SystemExit`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import os
@@ -43,7 +55,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from dahpe_tpu_torch import parallel
 from dahpe_tpu_torch.cli.args import build_parser
 from dahpe_tpu_torch.cli.common import (
     build_datasets,
@@ -52,6 +66,7 @@ from dahpe_tpu_torch.cli.common import (
     build_model,
     build_train_loader,
     build_val_loader,
+    check_world,
     make_visualizer,
     maybe_decoded_cache,
     refuse_unported,
@@ -123,13 +138,29 @@ def stream_seed(seed: int, step: int, stream: int) -> int:
     return int(np.random.SeedSequence((seed, step, stream)).generate_state(1, np.uint64)[0])
 
 
-def make_stop_poller(stop_signum):
-    """Graceful-stop check polled at iteration boundaries: the signal a
-    handler recorded, or None. One process drives the run, so the local flag
-    is the answer; there is no consensus to reach."""
+def make_stop_poller(stop_signum, every: int = 1):
+    """Graceful-stop check, ``poll(step) -> signum | None``, called by every
+    rank once per iteration (or chunk) with the steps done so far.
 
-    def poll() -> int | None:
-        return stop_signum[0] if stop_signum else None
+    One process answers with its local flag at every call. Ranks must agree
+    on the step they drain at (the drain gathers the sampling states, a
+    collective), and a signal can reach them on either side of an iteration
+    boundary, so with several ranks the local flags are MAX-all-reduced
+    every ``every`` steps (``--print-freq``, where the host reads the
+    metrics anyway); between those steps a local flag waits. The cadence
+    counts steps, so at ``--steps-per-call K`` it falls on chunk boundaries."""
+    world = parallel.world_size()
+
+    def poll(step: int) -> int | None:
+        local = stop_signum[0] if stop_signum else 0
+        if world == 1:
+            return local or None
+        if step % max(every, 1):
+            return None
+        flag = torch.tensor([local], dtype=torch.int64,
+                            device=parallel.distributed.collective_device())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return int(flag) or None
 
     return poll
 
@@ -163,9 +194,11 @@ def pretrain_phase(args, logger, train_source_loader, val_source_loader,
     model = build_model(args, multi_head=False)
     state = create_pretrain_state(model, device=args.device, momentum=args.momentum,
                                   weight_decay=args.wd)
-    if args.imagenet_pth:
+    if args.imagenet_pth and parallel.rank() == 0:
         ckpt.load_imagenet_backbone(args.imagenet_pth, model)
     hyper = dict(momentum=args.momentum, weight_decay=args.wd)
+    parallel.replicate(model)  # rank 0's weights on every rank (nothing without a group)
+    hyper.update(parallel.data_parallel(model))
     chunk = validate_steps_per_call(args) if source_store is not None else 1
     if source_store is not None:
         fused = make_fused_pretrain_iteration(
@@ -211,7 +244,7 @@ def pretrain_phase(args, logger, train_source_loader, val_source_loader,
                 batch_time.update(time.time() - end)
                 progress.display(i)
             end = time.time()
-            signum = stop()
+            signum = stop(step + chunk)
             if signum is not None:
                 path = logger.get_checkpoint_path("pretrain_interrupt")
                 check_finite(saver, logger, state, step, **host_scalars(metrics, ("loss_s",)))
@@ -241,10 +274,21 @@ def main(args):
     # would waste minutes on a usage error
     refuse_unported(args)
     validate_steps_per_call(args)
-    logger = RunLogger(args.log, args.phase)
+    started_group = False
+    if args.multihost:
+        # bring-up is timeout-bounded and retried (parallel/distributed.py);
+        # each rank then runs on its own device
+        started_group = not dist.is_initialized()
+        args.device = str(parallel.robust_distributed_initialize(args.device))
+        check_world(args, parallel.world_size())
+    primary = parallel.rank() == 0
+    quiet = None
+    if not primary:  # rank 0 alone prints; errors still reach stderr
+        quiet, sys.stdout = sys.stdout, open(os.devnull, "w")
+    logger = RunLogger(args.log, args.phase, primary=primary)
     # checkpoint writes drain on a worker thread behind the next epoch's
-    # compute (utils/fast_ckpt.py)
-    saver = fast_ckpt.AsyncSaver()
+    # compute (utils/fast_ckpt.py); rank 0 alone writes
+    saver = fast_ckpt.AsyncSaver() if primary else _NoSaver()
 
     # Preemption contract (the reference has none): SIGTERM/SIGINT request a
     # graceful stop; the in-flight iteration finishes, the state is
@@ -276,6 +320,19 @@ def main(args):
     finally:
         restore_handlers()
         logger.close()
+        if quiet is not None:
+            sys.stdout.close()
+            sys.stdout = quiet
+        if started_group:
+            parallel.shutdown()
+
+
+class _NoSaver:
+    """The checkpoint writer of a rank other than 0: every write is
+    rank 0's."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
 
 
 def _load_warm_start(model, path: str) -> None:
@@ -292,6 +349,8 @@ def _load_warm_start(model, path: str) -> None:
 
 def _run_phases(args, logger, saver, stop_signum):
     print(args)
+    rank, world = parallel.rank(), parallel.world_size()
+    primary = rank == 0
     random.seed(args.seed)
     np.random.seed(args.seed)
 
@@ -319,7 +378,7 @@ def _run_phases(args, logger, saver, stop_signum):
         stores = {}
         for name, ds in (("source", train_source), ("target", train_target)):
             stores[name] = DeviceDataStore(maybe_decoded_cache(args, ds), device=args.device,
-                                           verbose=False)
+                                           verbose=False, shard=(rank, world))
             print(f"device store ({name}): {stores[name].n} samples, "
                   f"{stores[name].nbytes() / 1e9:.2f} GB")
         val_source_loader = build_device_val_loader(args, val_source, name="source")
@@ -335,8 +394,15 @@ def _run_phases(args, logger, saver, stop_signum):
     start_epoch = start_iter = 0
     resume_aux = {}  # sampling-generator states + best-acc watermark
     if args.resume:
-        ckpt.restore_state(args.resume, state)
-        resume_aux = ckpt.load_aux(args.resume)
+        # rank 0 reads the resume point; the others take it over the wire
+        if primary:
+            ckpt.restore_state(args.resume, state)
+            resume_aux = ckpt.load_aux(args.resume)
+        if world > 1:
+            parallel.replicate(state)
+            shared = [resume_aux]
+            dist.broadcast_object_list(shared)
+            resume_aux = shared[0]
         start_epoch = state.step // args.iters_per_epoch
         # a mid-epoch 'latest' (--save-every, --max-steps, a stop) resumes at
         # the iteration it stopped on; epoch checkpoints land on 0
@@ -356,17 +422,22 @@ def _run_phases(args, logger, saver, stop_signum):
             pretrain_path = pretrain_phase(
                 args, logger, pretrain_loader, val_source_loader, val_source,
                 source_store=stores["source"] if stores else None, saver=saver,
-                stop=make_stop_poller(stop_signum),
+                stop=make_stop_poller(stop_signum, args.print_freq),
             )
             if pretrain_path is None:  # graceful stop during pretraining
                 saver.close()
                 return
         if pretrain_path is not None:
-            _load_warm_start(model, pretrain_path)
+            if primary:  # the others take the weights over the wire
+                _load_warm_start(model, pretrain_path)
+            parallel.replicate(model)
             if state.ema is not None:
                 state.ema = {k: v.detach().clone() for k, v in ema_state(model).items()}
 
-    visualize = make_visualizer(train_source, logger) if args.debug else None
+    if world > 1:  # every rank checks it starts from rank 0's state
+        parallel.assert_replicated(state)
+    draw = args.debug and primary
+    visualize = make_visualizer(train_source, logger) if draw else None
     eval_step = make_eval_step(model, device=args.device)
     val_kw = dict(image_size=args.image_size, heatmap_size=args.heatmap_size,
                   print_freq=args.print_freq, device=args.device)
@@ -394,18 +465,22 @@ def _run_phases(args, logger, saver, stop_signum):
         ema_decay=args.ema_decay if args.with_ema else None,
         conf_gate=args.conf_gate or None,
     )
+    step_config.update(parallel.data_parallel(model))  # one rank of the job, if any
     producer = dict(image_size=args.image_size, heatmap_size=args.heatmap_size,
                     rotation=args.rotation, scale_range=tuple(args.resize_scale))
     if args.device_store:
-        gens = [stores["source"].generator(0), stores["target"].generator(0)]
-        for i, key in enumerate(("key_s", "key_t")):
-            if key in resume_aux:
-                gens[i].set_state(torch.from_numpy(np.asarray(resume_aux[key], np.uint8)))
-            else:
-                gens[i].manual_seed(stream_seed(args.seed, state.step, i))
+        # each rank's streams (a sharded store folds its rank into the seed);
+        # a resume at the world size it was saved at continues them
+        gens = []
+        for i, (name, key) in enumerate((("source", "key_s"), ("target", "key_t"))):
+            gens.append(stores[name].generator(stream_seed(args.seed, state.step, i)))
+            saved = ckpt.rank_stream_state(resume_aux.get(key), rank, world)
+            if saved is not None:
+                gens[i].set_state(torch.from_numpy(saved))
 
-        def current_stream_aux():
-            return {"key_s": gens[0].get_state(), "key_t": gens[1].get_state()}
+        def current_stream_aux():  # a collective under --multihost
+            return ckpt.gather_stream_states({"key_s": gens[0].get_state(),
+                                              "key_t": gens[1].get_state()})
 
         # one call per chunk of iterations: both stores' gather +
         # augmentation + targets and the 3-step minimax, the generators
@@ -423,7 +498,8 @@ def _run_phases(args, logger, saver, stop_signum):
             # the host-fed augmentation draws: a generator on the device,
             # seeded from the step so a resumed run draws anew
             aug_gen = torch.Generator(device=args.device)
-            aug_gen.manual_seed(stream_seed(args.seed, state.step, 2))
+            seed = stream_seed(args.seed, state.step, 2)
+            aug_gen.manual_seed(seed if world == 1 else parallel.fold_in(seed, rank))
 
             def finalize(host):
                 return device_train_batch(host, aug_gen, **producer)
@@ -449,8 +525,9 @@ def _run_phases(args, logger, saver, stop_signum):
         # enqueued async: training continues while it drains; the stop
         # path flushes before exiting
         path = logger.get_checkpoint_path("latest")
+        aux = current_stream_aux()
         saver.save(path, ckpt.state_tree(state))
-        saver.save_aux(path, best_acc=best_acc, **current_stream_aux())
+        saver.save_aux(path, best_acc=best_acc, **aux)
         return path
 
     print("Start regression domain adaptation.")
@@ -464,7 +541,8 @@ def _run_phases(args, logger, saver, stop_signum):
             state, metrics, _, _ = run_iteration(state)
         host_scalars(metrics, ("loss_s",))
         tracedir = os.path.join(args.log, "trace")
-        with profiling.trace(tracedir) as summary:
+        # every rank runs the iterations (they hold collectives); rank 0 traces
+        with (profiling.trace(tracedir) if primary else contextlib.nullcontext({})) as summary:
             for _ in range(args.profile):
                 state, metrics, _, _ = run_iteration(state)
             host_scalars(metrics, ("loss_s",))
@@ -475,7 +553,7 @@ def _run_phases(args, logger, saver, stop_signum):
               "nothing to do")
         saver.close()
         return
-    poll_stop = make_stop_poller(stop_signum)
+    poll_stop = make_stop_poller(stop_signum, args.print_freq)
     for epoch in range(start_epoch, args.epochs):
         logger.set_epoch(epoch)
         batch_time = AverageMeter("Time", ":4.2f")
@@ -509,7 +587,7 @@ def _run_phases(args, logger, saver, stop_signum):
                                   pred[0].cpu().numpy() * scale, f"{name}_{i}_pred")
             end = time.time()
             budget_done = args.max_steps and global_step >= args.max_steps
-            stop_sig = poll_stop()
+            stop_sig = poll_stop(global_step)
             if stop_sig or budget_done:
                 if stop_sig:
                     print(f"signal {stop_sig}: finished the in-flight iteration, saving "
@@ -533,9 +611,12 @@ def _run_phases(args, logger, saver, stop_signum):
         check_finite(saver, logger, state, global_step, **host_scalars(metrics, DA_LOSSES))
         src_acc = validate(val_source_loader, model, val_source, eval_step=eval_step, **val_kw)
         tgt_acc = validate(val_target_loader, model, val_target, eval_step=eval_step,
-                           visualize=make_visualizer(val_target, logger) if args.debug
+                           visualize=make_visualizer(val_target, logger) if draw
                            else None, **val_kw)
 
+        # the generator states after the epoch, for both sidecars below (a
+        # collective: every rank takes it, whatever rank 0's best decides)
+        aux = current_stream_aux()
         epoch_path = logger.get_checkpoint_path(epoch)
         saver.save(epoch_path, ckpt.state_tree(state))
         if state.ema is not None:
@@ -553,11 +634,10 @@ def _run_phases(args, logger, saver, stop_signum):
             best_acc = tgt_acc["all"]
             # the same bytes as the epoch save just enqueued: link host-side
             saver.link(epoch_path, logger.get_checkpoint_path("best"))
-            saver.save_aux(logger.get_checkpoint_path("best"), best_acc=best_acc,
-                           **current_stream_aux())
+            saver.save_aux(logger.get_checkpoint_path("best"), best_acc=best_acc, **aux)
         # aux after the best update: the epoch checkpoint records the current
         # watermark and the post-epoch generator states
-        saver.save_aux(epoch_path, best_acc=best_acc, **current_stream_aux())
+        saver.save_aux(epoch_path, best_acc=best_acc, **aux)
         if args.keep_checkpoints > 0:
             # ordered after the pending saves on the worker
             saver.run(lambda d=logger.checkpoint_directory, k=args.keep_checkpoints:

@@ -42,7 +42,7 @@ def dist_acc(dists: torch.Tensor, thr: float = 0.5) -> torch.Tensor:
 
 
 def pck_accuracy(
-    output: torch.Tensor, target: torch.Tensor, *, thr: float = 0.5
+    output: torch.Tensor, target: torch.Tensor, *, thr: float = 0.5, gather=None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """PCK from heatmaps (both ``(B, H, W, K)``), per the reference metric.
 
@@ -55,14 +55,20 @@ def pck_accuracy(
     float32 coordinates); as in the JAX package the normalizer is made in
     the heatmaps' dtype (``h / 10`` rounded to bfloat16) and the distances
     in float32.
+
+    ``gather(rows)`` (a data-parallel rank's ``Collectives.gather``) joins
+    every rank's ``(B, K)`` distances, so the accuracies are the global
+    batch's; ``preds`` stay this rank's.
     """
     pred, _ = get_max_preds(output)
-    acc, avg, cnt = pck_of_preds(pred, target, thr=thr, norm_dtype=output.dtype)
+    acc, avg, cnt = pck_of_preds(pred, target, thr=thr, norm_dtype=output.dtype,
+                                 gather=gather)
     return acc, avg, cnt, pred
 
 
 def pck_of_preds(
-    pred: torch.Tensor, target: torch.Tensor, *, thr: float = 0.5, norm_dtype=None
+    pred: torch.Tensor, target: torch.Tensor, *, thr: float = 0.5, norm_dtype=None,
+    gather=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`pck_accuracy` of decoded predictions ``pred (B, K, 2)`` in
     heatmap pixels against ``(B, H, W, K)`` target heatmaps: ``(acc (K,),
@@ -77,6 +83,8 @@ def pck_of_preds(
                         torch.full((b,), w / 10.0, dtype=dt, device=pred.device)],
                        dim=-1)
     dists = calc_dists(pred, gt, norm)
+    if gather is not None:
+        dists = gather(dists.T.contiguous()).T
     acc = dist_acc(dists, thr)
     valid = acc >= 0
     cnt = torch.sum(valid)

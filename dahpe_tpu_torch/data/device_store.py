@@ -1,10 +1,9 @@
 """Device-resident dataset store: training and validation batches with no
 host traffic.
 
-Port of ``dahpe_tpu/data/device_store.py`` for one device (per-rank sample
-shards come with the parallel slice). The pre-decoded uint8 crops of a
-split, with their keypoints, visibility and intrinsics, are uploaded to the
-card once. Every training batch is then
+Port of ``dahpe_tpu/data/device_store.py``. The pre-decoded uint8 crops of
+a split, with their keypoints, visibility and intrinsics, are uploaded to
+the card once. Every training batch is then
 
     sample indices (a generator on the device) → flat-view row gather
     → augmentation (``device_aug``) → Gaussian targets
@@ -12,6 +11,13 @@ card once. Every training batch is then
 and every eval batch a row gather, the ImageNet normalize and the targets,
 all on the device. Sampling is without replacement within a batch and with
 replacement across batches, the DA trainer's infinite-iterator regime.
+
+Under data parallelism over W ranks (``shard=(rank, W)``) a training store
+holds only its rank's rows, the contiguous ``[r·n/W, (r+1)·n/W)`` with ``n``
+floored to a multiple of W (the JAX package's assignment, drop-last
+semantics), and draws ``batch/W`` rows of the global batch from them; its
+seeds fold the rank in, so each rank samples its own stream. A validation
+store stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from dahpe_tpu_torch.data.device_aug import (
     augment_batch,
     draw_augment_params,
 )
+from dahpe_tpu_torch.parallel.distributed import fold_in
 
 
 class DeviceDataStore:
@@ -40,15 +47,21 @@ class DeviceDataStore:
       device: where the store lives (default: the card).
       raw_size: side of the stored crops.
       upload_chunk: rows per host→device copy during the one-time upload.
+      shard: ``(rank, world)`` of a data-parallel training store (module
+        docstring); ``(0, 1)`` holds every row.
     """
 
     def __init__(self, source, *, device=None, raw_size: int = 288,
-                 upload_chunk: int = 512, verbose: bool = True):
+                 upload_chunk: int = 512, verbose: bool = True, shard=(0, 1)):
         self.device = resolve_device(device)
         self.raw_size = s = int(raw_size)
-        self.n = n = len(source)
+        self.rank, self.world = int(shard[0]), int(shard[1])
+        if not 0 <= self.rank < self.world:
+            raise ValueError(f"DeviceDataStore: shard {shard} is not (rank, world)")
+        self.n = n = len(source) // self.world  # this rank's rows
         if n == 0:
-            raise ValueError("DeviceDataStore: empty source")
+            raise ValueError(f"DeviceDataStore: {len(source)} samples for {self.world} ranks")
+        first = self.rank * n  # the source index of row 0
         k = source.num_keypoints
         rng = np.random.default_rng(0)  # fetch_raw does not consume it
 
@@ -62,7 +75,7 @@ class DeviceDataStore:
             kp = np.empty((stop - start, k, 2), np.float32)
             vi = np.empty((stop - start, k), np.float32)
             it = np.empty((stop - start, 3, 3), np.float32)
-            for j, i in enumerate(range(start, stop)):
+            for j, i in enumerate(range(first + start, first + stop)):
                 item = source.fetch_raw(i, rng, s)
                 imgs[j] = item["image_u8"]
                 kp[j] = item["keypoint2d"]
@@ -81,9 +94,13 @@ class DeviceDataStore:
             for x in (self.images, self.kps, self.vis, self.intr)
         )
 
+    def _seed(self, seed: int) -> int:
+        return int(seed) if self.world == 1 else fold_in(seed, self.rank)
+
     def generator(self, seed: int) -> torch.Generator:
-        """A fresh random generator on the store's device."""
-        return torch.Generator(device=self.device).manual_seed(int(seed))
+        """A fresh random generator on the store's device (a sharded
+        store's seed with its rank folded in)."""
+        return torch.Generator(device=self.device).manual_seed(self._seed(seed))
 
     def train_batch_from(self, idx: torch.Tensor, params: dict, *, image_size: int = 256,
                          heatmap_size: int = 64, sigma: float = 2.0) -> dict:
@@ -109,7 +126,12 @@ class DeviceDataStore:
         """The batch producer ``generator -> batch``: ``batch_size`` rows
         drawn without replacement (``torch.randperm`` on the generator),
         their augmentation draws from the same generator, then
-        :meth:`train_batch_from`. Nothing is read back to the host."""
+        :meth:`train_batch_from`. Nothing is read back to the host. A
+        sharded store takes ``batch_size`` as the global batch and draws its
+        rank's ``batch_size / world`` rows."""
+        if batch_size % self.world:
+            raise ValueError(f"batch {batch_size} does not split over {self.world} ranks")
+        batch_size //= self.world
         if not 0 < batch_size <= self.n:
             raise ValueError(f"batch {batch_size} not in 1..{self.n} (store rows)")
         cfg = dict(image_size=image_size, heatmap_size=heatmap_size, sigma=sigma)
@@ -137,7 +159,7 @@ class DeviceDataStore:
         if isinstance(seed_or_state, torch.Tensor):
             g.set_state(seed_or_state)
         else:
-            g.manual_seed(int(seed_or_state))
+            g.manual_seed(self._seed(seed_or_state))
         self._stream = g
 
     def stream_data(self) -> torch.Tensor | None:
@@ -159,8 +181,11 @@ class DeviceDataStore:
         Build the store at ``raw_size == image_size``: the device then only
         normalizes and renders the Gaussian targets. Trailing batches are
         padded with clipped duplicate rows whose targets and weights are
-        zero-masked, so they contribute nothing to PCK.
+        zero-masked, so they contribute nothing to PCK. Validation covers
+        every row, so the store must not be sharded.
         """
+        if self.world != 1:
+            raise ValueError("a sharded store is for training; validate on a whole one")
         return _DeviceEvalLoader(self, batch_size, heatmap_size, sigma)
 
 

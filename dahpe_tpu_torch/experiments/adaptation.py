@@ -105,8 +105,9 @@ def run_adaptation_experiment(
     )
 
     if n_devices not in (None, 1):
-        raise ValueError(f"n_devices={n_devices}: the port runs one device; data "
-                         "parallelism is ROADMAP.md queue 1 item 11")
+        raise ValueError(f"n_devices={n_devices}: the experiment runs one device; "
+                         "cli.train --multihost is the data-parallel trainer (the "
+                         "experiment over several devices is ROADMAP.md item 11's remainder)")
     device = resolve_device(device)
     t_start = time.time()
 

@@ -13,7 +13,8 @@ program the quantized tree of :mod:`dahpe_tpu_torch.quant`. Their companion
 Exports can be batch-polymorphic (``batch_size=None``): one artifact serves
 any batch. The artifact records its kind, device, batch, frame shape and
 input dtype in the saved archive (``Artifact.meta``); an exported
-program bakes its device in, so loading it on another one raises.
+program bakes its device in, so loading it on another device type raises,
+and loading it for another card of its type moves it there.
 """
 
 from __future__ import annotations
@@ -166,7 +167,67 @@ def load_predict(blob: bytes, *, device=None) -> Artifact:
     if torch.device(meta["device"]).type != device.type:
         raise ValueError(f"artifact was exported for {meta['device']}; it cannot run on "
                          f"{device} (export it there with --device {device.type})")
+    if device.index is not None and device != torch.device(meta["device"]):
+        # another card of the same type: the program's constants and the
+        # devices its operations name move there
+        from torch.export.passes import move_to_device_pass
+
+        program = move_to_device_pass(program, device)
+        meta = dict(meta, device=str(device))
     return Artifact(program, meta)
+
+
+class MeshPredict:
+    """Data-parallel serving over local ``devices``: ``mesh(weights, images)
+    -> (coords, maxvals)`` splits the batch into one equal chunk per device,
+    runs each chunk through that device's copy of the predict program
+    (``predicts``, one a device, each placed there: an artifact loaded with
+    ``load_predict_file(path, device=d)``, a ``PredictProgram`` made with
+    ``device=d``) on that device's copy of the weights, and gathers the
+    coordinates and confidences on the first device. The weights are copied
+    to each device once per weights object. Rows are independent in the
+    forward, so the coordinates equal one device's bit for bit (the JAX
+    package's ``make_mesh_predict``: batch sharded, weights replicated).
+    The batch must divide by the number of devices; the server pads to
+    such a batch, and drives the same split and gather around one CUDA graph
+    a device."""
+
+    def __init__(self, predicts, devices):
+        self.devices = [torch.device(d) for d in devices]
+        self.predicts = list(predicts)
+        if len(self.predicts) != len(self.devices):
+            raise ValueError(f"{len(self.predicts)} predict programs for "
+                             f"{len(self.devices)} devices")
+        self._placed = (None, None)  # (weights, one copy a device)
+
+    def weights_on(self, weights) -> list:
+        """``weights`` on each device, in device order."""
+        if self._placed[0] is not weights:
+            self._placed = (weights, [to_torch(weights, d) for d in self.devices])
+        return self._placed[1]
+
+    def split(self, images) -> list:
+        """One equal chunk of the rows of ``images`` (a tensor or an array)
+        a device, in device order."""
+        n = len(self.devices)
+        if images.shape[0] % n:
+            raise ValueError(f"a batch of {images.shape[0]} does not split over {n} devices")
+        rows = images.shape[0] // n
+        return [images[i * rows:(i + 1) * rows] for i in range(n)]
+
+    def gather(self, outs) -> tuple:
+        """Each device's ``(coords, maxvals)``, concatenated on the first."""
+        return tuple(torch.cat([o[i].to(self.devices[0]) for o in outs]) for i in range(2))
+
+    def __call__(self, weights, images):
+        return self.gather([predict(w, chunk.to(d)) for predict, w, chunk, d in zip(
+            self.predicts, self.weights_on(weights), self.split(images), self.devices)])
+
+
+def make_mesh_predict(predicts, devices) -> MeshPredict:
+    """:class:`MeshPredict` over ``devices``, ``predicts`` one program a
+    device."""
+    return MeshPredict(predicts, devices)
 
 
 def save_predict(path: str, model, **kw) -> None:

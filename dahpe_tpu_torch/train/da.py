@@ -131,6 +131,7 @@ def make_da_train_step(
     share_target_features: bool = True,
     bn_momentum: float | None = None,
     conf_gate: float | None = None,
+    collectives=None,
 ) -> Callable:
     """Build the DA step ``(state, batch_s, batch_t) -> (state, metrics)``.
 
@@ -158,13 +159,24 @@ def make_da_train_step(
     are moved as if they ran twice on the same batch:
     ``r2 = (2 - m)·r1 - (1 - m)·r0``. Off, the step is the reference's
     literal three forwards.
+
+    ``collectives`` (a :class:`~dahpe_tpu_torch.parallel.Collectives`, passed
+    by ``parallel.make_parallel_da_step``) makes the step one rank of a
+    data-parallel job on its rows of the global batch: each partition's
+    gradients are averaged over the ranks before its SGD step, the gate's
+    quantile is taken over the global batch (the JAX package's data-parallel
+    step computes it so, whatever its comment says), and the losses and
+    accuracies are global-batch values. The model's batch norm must take
+    global statistics too (``models.batch_norm.set_process_group``).
     """
     if bn_momentum is None:
         # the double update holds only for the momentum the BN layers run
         # with; every model of the zoo uses BatchNorm2d's default
         bn_momentum = inspect.signature(BatchNorm2d).parameters["momentum"].default
     keep = 1.0 - bn_momentum
-    hyper = dict(momentum=momentum, weight_decay=weight_decay)
+    hyper = dict(momentum=momentum, weight_decay=weight_decay,
+                 reduce=None if collectives is None else collectives.grads)
+    gather = None if collectives is None else collectives.gather
     adv_params = partition_params(model, sum((DA_PARTITIONS[n] for n in ADV), ()))
     f_params = partition_params(model, DA_PARTITIONS["f"])
     lr_table = StepTable(lambda i: da_lr(i, base_lr=base_lr, gamma=lr_gamma, decay=lr_decay))
@@ -173,7 +185,8 @@ def make_da_train_step(
         if not conf_gate:
             return w
         conf = torch.amax(y.detach(), dim=(1, 2)).to(torch.float32)  # (B, K)
-        thr = torch.quantile(conf, conf_gate, dim=0, interpolation="linear")  # (K,)
+        rows = conf if gather is None else gather(conf)  # the global batch
+        thr = torch.quantile(rows, conf_gate, dim=0, interpolation="linear")  # (K,)
         mask = (conf >= thr).to(torch.float32)
         return mask if w is None else w * mask
 
@@ -274,12 +287,17 @@ def make_da_train_step(
             "lr": lr,
             "gl_coeff": lam,
         }
+        if collectives is not None:  # global-batch means, one all-reduce
+            names = ("loss_s", "loss_gf", "loss_gt")
+            metrics.update(zip(names, collectives.mean(
+                torch.stack([metrics[n] for n in names])).unbind()))
         if compute_metrics:
             with torch.no_grad():
-                _, acc_s, _, pred_s = pck_accuracy(out_s["y"].detach(), label_s)
-                _, acc_t, _, pred_t = pck_accuracy(out_t["y"].detach(), label_t)
-                _, acc_s_adv, _, _ = pck_accuracy(out_s["y_adv"].detach(), label_s)
-                _, acc_t_adv, _, _ = pck_accuracy(out_t["y_adv"].detach(), label_t)
+                kw = dict(gather=gather)
+                _, acc_s, _, pred_s = pck_accuracy(out_s["y"].detach(), label_s, **kw)
+                _, acc_t, _, pred_t = pck_accuracy(out_t["y"].detach(), label_t, **kw)
+                _, acc_s_adv, _, _ = pck_accuracy(out_s["y_adv"].detach(), label_s, **kw)
+                _, acc_t_adv, _, _ = pck_accuracy(out_t["y_adv"].detach(), label_t, **kw)
             metrics.update(acc_s=acc_s, acc_t=acc_t, acc_s_adv=acc_s_adv,
                            acc_t_adv=acc_t_adv, pred_s=pred_s, pred_t=pred_t)
         state.step_t.add_(1)

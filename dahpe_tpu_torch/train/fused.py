@@ -17,6 +17,12 @@ call would draw, and the step count, learning rate and GL coefficient are
 device tensors the iteration advances itself. On the CPU a call is a loop
 of K steps. A capture or replay that fails raises; there is no eager
 fallback. K = 1 is one eager step per call.
+
+Under data parallelism (``collectives=`` in ``step_config``, sharded
+stores) each rank runs its rows of the global batch and the captured
+iteration holds the gradient, batch-norm and metric collectives. NCCL's
+collectives are captured; gloo's cannot be, so a chunk above 1 on a card
+under gloo with more than one rank is refused before anything is built.
 """
 
 from __future__ import annotations
@@ -25,15 +31,20 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dahpe_tpu_torch.train.da import make_da_train_step
 from dahpe_tpu_torch.train.pretrain import lr_tensor, make_pretrain_step
 
 
-def _chunk_size(steps_per_call: int) -> int:
+def _chunk_size(steps_per_call: int, device, collectives=None) -> int:
     k = int(steps_per_call)
     if k < 1:
         raise ValueError(f"steps_per_call={k}: K must be at least 1")
+    if (k > 1 and torch.device(device).type == "cuda" and collectives is not None
+            and collectives.world > 1 and dist.get_backend(collectives.group) == "gloo"):
+        raise ValueError(f"steps_per_call={k}: gloo's collectives cannot be captured in a "
+                         "CUDA graph; run K = 1 under gloo, or use NCCL")
     return k
 
 
@@ -130,7 +141,7 @@ def make_fused_da_iteration(model, source_store, target_store, batch_size: int, 
     iteration drew (the CLI's ``--debug`` draws them); with K > 1 the
     metrics are the chunk means and the batches ``None``.
     ``step_config`` goes to :func:`~dahpe_tpu_torch.train.da.make_da_train_step`."""
-    k = _chunk_size(steps_per_call)
+    k = _chunk_size(steps_per_call, source_store.device, step_config.get("collectives"))
     cfg = dict(image_size=image_size, heatmap_size=heatmap_size, rotation=rotation,
                scale_range=tuple(scale_range), sigma=sigma)
     src = source_store.traced_batch_fn(batch_size, **cfg)
@@ -161,7 +172,7 @@ def make_fused_pretrain_iteration(model, source_store, batch_size: int, *,
     counterpart of :func:`make_fused_da_iteration`; ``lr`` (a host number or
     a 0-d tensor) is constant over a call's chunk, as the CLI's per-epoch
     schedule is."""
-    k = _chunk_size(steps_per_call)
+    k = _chunk_size(steps_per_call, source_store.device, step_config.get("collectives"))
     src = source_store.traced_batch_fn(
         batch_size, image_size=image_size, heatmap_size=heatmap_size, rotation=rotation,
         scale_range=tuple(scale_range), sigma=sigma,

@@ -66,23 +66,40 @@ def sgd_update(params: list[torch.Tensor], grads: list[torch.Tensor],
     torch._foreach_sub_(params, d)
 
 
+def partition_grads(optimizers: dict[str, torch.optim.SGD],
+                    names: tuple[str, ...]) -> list[torch.Tensor]:
+    """The gradients of the named partitions' parameters, in a fixed order;
+    a parameter the loss did not reach gets a zero gradient first."""
+    grads = []
+    for name in names:
+        for group in optimizers[name].param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+    return grads
+
+
 def step_partitions(optimizers: dict[str, torch.optim.SGD], names: tuple[str, ...],
-                    lr: torch.Tensor, **hyper) -> None:
+                    lr: torch.Tensor, *, reduce=None, **hyper) -> None:
     """SGD-step the named partitions at the 0-d tensor ``lr`` (and any other
     group setting in ``hyper``, e.g. ``momentum``) with :func:`sgd_update`;
     the others keep their parameters and momentum. Each optimizer keeps its
     momentum in ``state[p]["momentum_buffer"]``, as ``torch.optim.SGD``
     does (zeros until its first step). A parameter the loss did not reach
     gets a zero gradient, so weight decay and momentum still move it, as in
-    the JAX package (torch alone would skip it)."""
+    the JAX package (torch alone would skip it). ``reduce(names, grads)``,
+    when given, averages the gradients over the data-parallel ranks in
+    place before the step (``parallel.Collectives.grads``)."""
+    grads = partition_grads(optimizers, names)
+    if reduce is not None:
+        reduce(names, grads)
     for name in names:
         opt = optimizers[name]
         for group in opt.param_groups:
             group.update(**hyper)
             params = group["params"]
             for p in params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
                 if opt.state[p].get("momentum_buffer") is None:
                     opt.state[p]["momentum_buffer"] = torch.zeros_like(p)
             sgd_update(params, [p.grad for p in params],

@@ -18,7 +18,12 @@ import torch
 from dahpe_tpu_torch import resolve_device, set_float32_policy
 from dahpe_tpu_torch.core.losses import joints_kl_loss
 from dahpe_tpu_torch.core.metrics import pck_accuracy
-from dahpe_tpu_torch.train.optim import make_partitioned_sgd, step_partitions, zero_grad
+from dahpe_tpu_torch.train.optim import (
+    make_partitioned_sgd,
+    partition_grads,
+    step_partitions,
+    zero_grad,
+)
 
 PRETRAIN_PARTITIONS = {
     "backbone": ("backbone",),
@@ -66,6 +71,7 @@ def make_pretrain_step(
     momentum: float = 0.9,
     weight_decay: float = 1e-4,
     compute_metrics: bool = True,
+    collectives=None,
 ) -> Callable:
     """``(state, batch, lr) -> (state, metrics)``; ``lr`` is the epoch-level
     MultiStepLR value (``base_lr * pretrain_lr_factor(epoch)``): a host
@@ -74,7 +80,12 @@ def make_pretrain_step(
 
     The returned function's ``run(state, batch, lr_t) -> metrics`` is the
     step on a device lr tensor without the host step count's advance (what
-    ``train/fused.py`` captures)."""
+    ``train/fused.py`` captures).
+
+    ``collectives`` (``parallel.make_parallel_pretrain_step``) makes it one
+    rank of a data-parallel job: the gradients are averaged over the ranks
+    in one all-reduce after the backward pass, and the loss and accuracy are
+    global-batch values."""
     hyper = dict(momentum=momentum, weight_decay=weight_decay)
 
     def run(state: PretrainState, batch: dict, lr: torch.Tensor) -> dict:
@@ -84,13 +95,19 @@ def make_pretrain_step(
         y = model(x)
         loss = joints_kl_loss(y, label, w)
         loss.backward()
+        if collectives is not None:
+            names = tuple(PRETRAIN_PARTITIONS)
+            collectives.grads(names, partition_grads(state.optimizers, names))
         for name in PRETRAIN_PARTITIONS:
             # a float32 product, as the JAX package scales its float32 lr
             step_partitions(state.optimizers, (name,), lr * PRETRAIN_LR_SCALES[name], **hyper)
         metrics = {"loss_s": loss.detach(), "lr": lr.clone()}
+        gather = None
+        if collectives is not None:
+            metrics["loss_s"], gather = collectives.mean(metrics["loss_s"]), collectives.gather
         if compute_metrics:
             with torch.no_grad():
-                metrics["acc_s"] = pck_accuracy(y.detach(), label)[1]
+                metrics["acc_s"] = pck_accuracy(y.detach(), label, gather=gather)[1]
         return metrics
 
     def pretrain_step(state: PretrainState, batch: dict, lr):

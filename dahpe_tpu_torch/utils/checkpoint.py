@@ -14,7 +14,9 @@ and a model alone (``pretrain``, ``best``'s EMA twin) as ``model/...``.
 :func:`load_model_variables` reads those and the JAX package's packed
 checkpoints (``params/...``, ``batch_stats/...``). The sidecar
 ``<path>_aux.npz`` holds the sampling generators' states and the best-PCK
-watermark. ``.pth`` files use the reference's torch key space as they are.
+watermark; in a data-parallel run every rank's states, one row a rank
+(:func:`gather_stream_states`). ``.pth`` files use the reference's torch key
+space as they are.
 """
 
 from __future__ import annotations
@@ -120,6 +122,38 @@ def load_aux(path: str) -> dict:
     except Exception as e:  # truncated/corrupt zip: degrade, don't die
         print(f"warning: ignoring unreadable resume sidecar {f}: {e}")
         return {}
+
+
+def gather_stream_states(states: dict) -> dict:
+    """The sampling generators' states for the sidecar: as they are in one
+    process; with a process group of W > 1 ranks, every rank's states
+    gathered into ``(W, L)`` byte arrays, row ``r`` rank ``r``'s. A
+    collective: every rank calls it at the same point."""
+    import torch.distributed as dist
+
+    from dahpe_tpu_torch.parallel.distributed import collective_device
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return states
+    out = {}
+    for key, state in states.items():
+        mine = state.to(collective_device())
+        rows = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+        dist.all_gather(rows, mine)
+        out[key] = torch.stack(rows).cpu()
+    return out
+
+
+def rank_stream_state(saved, rank: int, world: int):
+    """Rank ``rank``'s generator state in a sidecar array saved by
+    :func:`gather_stream_states`, or ``None`` when it was saved at another
+    world size (the resume then starts fresh streams)."""
+    if saved is None:
+        return None
+    saved = np.asarray(saved, np.uint8)
+    if saved.ndim == 1:
+        return saved if world == 1 else None
+    return saved[rank] if saved.shape[0] == world else None
 
 
 def prune_epoch_checkpoints(checkpoint_dir: str, keep: int) -> list[int]:

@@ -1,7 +1,9 @@
 """Run logger: directories, checkpoint/image paths, console tee, metrics.
 
 Port of ``dahpe_tpu/utils/logging.py``: the same directories, console log
-and ``metrics.jsonl`` records (``kind`` and keys), for one process.
+and ``metrics.jsonl`` records (``kind`` and keys). In a data-parallel run
+only rank 0 logs (``primary=False`` elsewhere: no directories, no console
+file, no records).
 
 Equivalent of ``CompleteLogger`` (``utils/logger.py:5-98``) minus the
 stdout/stderr hijack — output is *tee'd* to ``{log}/{phase}-{time}.txt``
@@ -35,16 +37,20 @@ class _Tee:
 
 
 class RunLogger:
-    def __init__(self, root: str, phase: str = "train", tee: bool = True):
+    def __init__(self, root: str, phase: str = "train", tee: bool = True,
+                 primary: bool = True):
         self.root = root
         self.phase = phase
+        self.primary = primary
         self.visualize_directory = os.path.join(root, "visualize")
         self.checkpoint_directory = os.path.join(root, "checkpoints")
+        self.epoch = 0
+        self._fh = None
+        if not primary:
+            return
         os.makedirs(self.root, exist_ok=True)
         os.makedirs(self.visualize_directory, exist_ok=True)
         os.makedirs(self.checkpoint_directory, exist_ok=True)
-        self.epoch = 0
-        self._fh = None
         if tee:
             now = time.strftime("%Y-%m-%d-%H_%M_%S", time.localtime())
             log_filename = f"{phase}-{now}.txt"
@@ -54,8 +60,10 @@ class RunLogger:
             sys.stderr = _Tee(self._stderr, self._fh)
 
     def set_epoch(self, epoch: int):
-        os.makedirs(os.path.join(self.visualize_directory, str(epoch)), exist_ok=True)
         self.epoch = epoch
+        if not self.primary:
+            return
+        os.makedirs(os.path.join(self.visualize_directory, str(epoch)), exist_ok=True)
 
     def get_checkpoint_path(self, name=None) -> str:
         if name is None:
@@ -77,6 +85,9 @@ class RunLogger:
         coerced per entry. Appending keeps the file valid across ``--resume``
         processes — consumers see one monotone stream keyed by ``step``.
         """
+        if not self.primary:
+            return
+
         def coerce(v):
             if isinstance(v, dict):
                 return {k: coerce(x) for k, x in v.items()}

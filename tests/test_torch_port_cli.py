@@ -227,7 +227,6 @@ def test_nan_watchdog_exits_3_and_keeps_latest_finite(roots, tmp_path, monkeypat
 
 @pytest.mark.parametrize("flags,item", [
     (["--host-warp"], "item 8"),
-    (["--multihost"], "item 11"),
     (["--steps-per-call", "2"], "needs --device-store"),
     (["--steps-per-call", "0"], "at least 1"),
     (["--device-store", "--steps-per-call", "2", "--debug"], "without --debug"),

@@ -186,7 +186,7 @@ def test_polymorphic_uint8_pads_to_pow2_buckets(artifacts):
             dispatched.append(frames.shape[0])
             return original(weights, frames)
 
-        servable.predict = recording
+        servable.mesh.predicts[0] = recording
         frames = _frames(5, seed=2, dtype=np.uint8)
         status, out = _post_npy(port, "/predict", frames)
         assert status == 200 and dispatched == [8]
@@ -250,12 +250,12 @@ def test_dispatch_error_is_500(artifacts, mode):
         def failing(weights, frames):
             raise RuntimeError("CUDA error: out of memory (simulated)")
 
-        servable.predict = failing
+        servable.mesh.predicts[0] = failing
         frames = np.zeros((2, IMAGE, IMAGE, 3), np.float32)
         status, out = _post_npy(port, "/predict", frames)
         assert status == 500 and "out of memory" in out["error"]
         assert _post_npy(port, "/predict", np.zeros((2, 32, 32, 3), np.float32))[0] == 400
-        servable.predict = original
+        servable.mesh.predicts[0] = original
         status, out = _post_npy(port, "/predict", frames)
         assert status == 200 and np.asarray(out["coords"]).shape == (2, 21, 2)
 
@@ -289,7 +289,7 @@ def test_close_drains_in_flight_requests(artifacts):
         release.wait(timeout=TIMEOUT)
         return original(weights, frames)
 
-    server.servable.predict = slow
+    server.servable.mesh.predicts[0] = slow
     result = {}
     client = threading.Thread(target=lambda: result.update(
         reply=_post_npy(port, "/predict", np.zeros((2, IMAGE, IMAGE, 3), np.float32))))
@@ -346,7 +346,48 @@ def test_sigterm_drains_and_exits_zero(artifacts):
 
 
 def test_mesh_is_refused(artifacts):
-    with pytest.raises(SystemExit, match="item 11"):
+    """``--mesh`` was refused until the parallel slice ported it; it now
+    starts, splits over the host's devices (the CPU: one) and answers as the
+    server without it does."""
+    frames = np.random.default_rng(3).standard_normal((3, IMAGE, IMAGE, 3)).astype(np.float32)
+    answers = []
+    for extra in ((), ("--mesh",)):
+        server = create_server(build_serve_parser().parse_args(
+            [artifacts["fixed8"], "--port", "0", "--device", "cpu", *extra]))
+        try:
+            answers.append(server.servable.run(frames))
+            assert server.servable.info()["devices"] == ["cpu"]
+        finally:
+            server.server_close()
+    assert answers[0] == answers[1]
+
+
+def test_mesh_splits_each_batch_over_two_devices(artifacts, monkeypatch):
+    """``--mesh`` over two devices (the CPU twice, in place of two cards):
+    the artifact loaded once a device, each padded batch split into equal
+    chunks and gathered on the first; the answers equal the server's
+    without ``--mesh`` bit for bit, a 1- and a 3-frame request padded to an
+    even bucket. A fixed-batch artifact is refused over several devices."""
+    from dahpe_tpu_torch.cli import serve
+
+    monkeypatch.setattr(serve, "create_mesh", lambda: [torch.device("cpu")] * 2)
+    artifact = artifacts["uint8_poly"]
+    servers = [create_server(build_serve_parser().parse_args(
+        [artifact, "--port", "0", "--device", "cpu", *extra])) for extra in ((), ("--mesh",))]
+    try:
+        mesh = servers[1].servable
+        assert mesh.info()["devices"] == ["cpu", "cpu"] and len(mesh.mesh.predicts) == 2
+        assert mesh.mesh.predicts[0] is not mesh.mesh.predicts[1]
+        for n in (1, 3, 8):
+            frames = _frames(n, seed=20 + n, dtype=np.uint8)
+            (c0, m0), (c1, m1) = [s.servable.run_arrays(frames) for s in servers]
+            assert c1.shape == (n, 21, 2)
+            np.testing.assert_array_equal(c1, c0)
+            np.testing.assert_array_equal(m1, m0)
+    finally:
+        for s in servers:
+            s.server_close()
+    with pytest.raises(SystemExit, match="batch-polymorphic"):
         create_server(build_serve_parser().parse_args(
             [artifacts["fixed8"], "--port", "0", "--device", "cpu", "--mesh"]))
 
