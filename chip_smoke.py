@@ -115,13 +115,31 @@ line, fail the run by raising:
    the same iteration at world 1: losses within rel 1e-4, every parameter
    and BN statistic within 1e-4, all 373 parameters equal across the
    ranks, 7 / 3 / 2 launches a rank, ms/iter and the collectives' share;
+   beside the gap, the float64 floor that classifies it: world 1 in
+   float64 against world 1 in float32 and against the ranks, also on the
+   global batch of 4 ranks' draws;
    (c) ``cli.train --multihost --device-store`` over the two ranks on phase
    6's cut data: a pretrain epoch and a DA epoch cut by ``--max-steps``, in
    which SIGTERM to rank 1 alone drains both ranks at one step, rank 0
    alone writes, and ``--resume`` ends bit for bit where a straight run
    ends (each rank's sampling states from the sidecar); (d) ``cli.serve
    --mesh`` on phase 7's float artifact: the coordinates at 1, 8 and 32
-   frames equal the server's without it.
+   frames equal the server's without it;
+11. the rest of the JAX package's paths: (a) ``cli.train --host-warp`` at
+   full width (float32) on phase 6's cut data: the native library's build
+   (``g++``), one batch of its fused augmentation against the numpy
+   version, the warped loader's img/s on 8 threads, a pretrain and a DA
+   epoch with ms/iter in the loop, a profiled iteration's idle share and
+   the launches the counts imply (7 / 3 / 0 a DA iteration); (b)
+   ``experiments.perf_audit`` at phase 5's configuration in float32 and
+   bf16: each stage's ms, the stages' sum within 10% of the whole
+   producer's, the rotation and Gaussian launches the timed calls imply;
+   (c) ``experiments.preempt_drill`` through the CLI (this script's
+   ``--cli-train``: phase 6's cut domains) at full width, bf16: SIGTERM
+   mid-epoch, exit 0, the resume at the exact iteration, every epoch's
+   checkpoint, the two processes' launches; (d) ``RegDAPoseResNet(
+   resnet101)``'s eval outputs for 1 and 32 frames on the card against
+   the CPU at phase 3's tolerance.
 
 Then one JSON line of kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -879,6 +897,11 @@ def build_model(torch, models, seed: int = 7, dtype=None):
     computing in ``dtype`` (None: float32)."""
     model = models.MultiHeadPoseResNet(models.resnet101(dtype=dtype), num_keypoints=JOINTS,
                                        dtype=dtype)
+    return seed_weights(torch, model, seed)
+
+
+def seed_weights(torch, model, seed: int):
+    """``model`` with build_model's seeded weights and BN stats, in eval mode."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -2769,7 +2792,8 @@ def phase_parallel_world1(torch, models, train, data, smi, phase5_ms, phase8a):
 
 
 def phase_parallel_two_ranks(torch, models, train, smi, stores, root,
-                             world: int = PARALLEL_WORLD, backend: str = "gloo"):
+                             world: int = PARALLEL_WORLD, backend: str = "gloo",
+                             floor_worlds=()):
     """Phase 10b: two ranks sharing the card over gloo (or, with ``--cards``,
     one rank a card over NCCL), one DA iteration at global batch 32+32
     (32/W + 32/W a rank, each rank's rows from its shard) against the same
@@ -2780,43 +2804,58 @@ def phase_parallel_two_ranks(torch, models, train, smi, stores, root,
     at its defaults some algorithms sum in a varying order, and the
     world-1 iteration alone then moved a BN statistic by 9.2e-5 between
     runs on an NVIDIA H100 80GB HBM3 at 700 W, so the gap would be noise. Beside the gap, the world-1
-    iteration at cuDNN's defaults against the deterministic one."""
+    iteration at cuDNN's defaults against the deterministic one, and the
+    float64 floor that classifies the gap (PERF.md §6): the world-1
+    iteration in float64 against the float32 one (float32's own rounding)
+    and against the ranks; ``floor_worlds`` adds that floor on the global
+    batches of other world sizes (the 4-rank draws on one card)."""
     t0 = time.perf_counter()
     ranks = run_workers(torch, "step", os.path.join(root, "10b"), world, backend)
-    b_s, b_t = [store.train_batch_from(idx, params)
-                for store, (idx, params) in zip(stores, parallel_draws(torch, CLI_DEVICE, world))]
 
-    def world_1(deterministic):
+    def world_1(w, deterministic, dtype=None):
+        """One world-1 DA iteration on the global batch of ``w`` ranks'
+        draws, from the ranks' weights, in ``dtype`` (default float32)."""
         model = build_model(torch, models, seed=9).to(CLI_DEVICE)  # the ranks' weights
+        batches = [store.train_batch_from(idx, params) for store, (idx, params)
+                   in zip(stores, parallel_draws(torch, CLI_DEVICE, w))]
+        if dtype is not None:
+            model.to(dtype)
+            batches = [{k: v.to(dtype) for k, v in b.items()} for b in batches]
         state = train.create_da_state(model, device=CLI_DEVICE, with_ema=True)
         step = train.make_da_train_step(model, share_target_features=True, ema_decay=0.99)
         default = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = deterministic
         try:
-            state, m = step(state, b_s, b_t)
+            state, m = step(state, *batches)
         finally:
             torch.backends.cudnn.deterministic = default
         return ({k: float(m[k]) for k in ("loss_s", "loss_gf", "loss_gt")},
                 {k: v.detach().cpu() for k, v in model.state_dict().items()},
                 {n for n, _ in model.named_parameters()})
 
-    want, ref, params = world_1(True)
+    want, ref, params = world_1(world, True)
 
-    def gap(got):
-        """The worst |Δ| of each kind against ``ref``, and where: (tensor,
+    def gap(got, base=ref):
+        """The worst |Δ| of each kind against ``base``, and where: (tensor,
         its largest |value|)."""
         worst, at = {"parameters": 0.0, "bn_statistics": 0.0}, {}
-        for k, v in ref.items():
+        for k, v in base.items():
             if v.is_floating_point():
                 kind = "parameters" if k in params else "bn_statistics"
-                diff = float((got[k] - v).abs().max())
+                diff = float((got[k].double() - v.double()).abs().max())
                 if diff > worst[kind]:
                     worst[kind], at[kind] = diff, (k, float(v.abs().max()))
         return {"worst_abs": worst, "at_tensor_and_its_largest_abs": at}
 
-    floor = gap(world_1(False)[1])
+    floor = gap(world_1(world, False)[1])
+    f64 = world_1(world, True, torch.float64)[1]
+    rounding = gap(f64)  # float32's own rounding: world-1 float32 against float64
+    floors = {w: gap(*(world_1(w, True, dtype)[1] for dtype in (None, torch.float64)))
+              for w in floor_worlds}
     worst = {"worst_abs": {"parameters": 0.0, "bn_statistics": 0.0}}
+    ranks_vs_f64 = 0.0
     for r, res in enumerate(ranks):
+        ranks_vs_f64 = max(ranks_vs_f64, gap(res["state"], f64)["worst_abs"]["bn_statistics"])
         rel = max(abs(res["losses"][k] - v) / abs(v) for k, v in want.items())
         if not rel <= 1e-4:
             raise AssertionError(f"10b: rank {r} losses {res['losses']} vs world 1 {want}")
@@ -2826,9 +2865,19 @@ def phase_parallel_two_ranks(torch, models, train, smi, stores, root,
         expected = dict(NO_LAUNCHES, render_gaussian=7, pseudo_labels=3, rotate3_fused=2)
         if res["launches"] != expected:
             raise AssertionError(f"10b: rank {r} launches {res['launches']}, expected {expected}")
+    bn_gap = worst["worst_abs"]["bn_statistics"]
+    bn_rounding = rounding["worst_abs"]["bn_statistics"]
+    classification = {
+        "criterion": "fault if the W-rank BN-statistics gap exceeds 2x the larger of JAX's "
+                     "1-vs-W device gap (CPU test) and the world-1 float32-vs-float64 gap",
+        "w_rank_gap": bn_gap, "float32_vs_float64": bn_rounding,
+        "ranks_vs_float64": ranks_vs_f64, "gap_over_rounding": bn_gap / bn_rounding,
+        "float64_floor_other_worlds": floors,
+    }
     if not max(worst["worst_abs"].values()) <= DATA_PARALLEL_ATOL:
         raise AssertionError(f"10b: {world} ranks vs world 1 {worst}; world 1 at cuDNN's "
-                             f"defaults vs deterministic {floor}")
+                             f"defaults vs deterministic {floor}; float64 floor "
+                             f"{classification}")
     keys = ("ms_per_iter", "collective_calls_per_iter", "collective_ms_per_iter",
             "synchronized_iter_ms", "collective_share", "parameters_equal",
             "state_tensors_equal", "launches")
@@ -2838,6 +2887,7 @@ def phase_parallel_two_ranks(torch, models, train, smi, stores, root,
         "card": smi, "seconds": time.perf_counter() - t0, "losses_world_1": want,
         "losses_rank_0": ranks[0]["losses"], "vs_world_1": worst,
         "cudnn_deterministic": True, "world_1_default_vs_deterministic": floor,
+        "world_1_float32_vs_float64": rounding, "bn_classification": classification,
         "bound": DATA_PARALLEL_ATOL, "ranks": [{k: res[k] for k in keys} for res in ranks]})
     return [res["launches"] for res in ranks]
 
@@ -2918,6 +2968,245 @@ def phase_serve_mesh(torch, smi, root):
          "resnet101 256²/64²/21", {
         "card": smi, "seconds": time.perf_counter() - t0, "devices": info["devices"],
         "graphs": info["graphs"], "frames": results})
+
+
+HOST_WARP_WORKERS = 8  # phase 11a: loader threads (the card's machine has 8 cores)
+DRILL_ITERS = 16  # phase 11c: iterations an epoch (the drill's default 100)
+AUDIT_ITERS, AUDIT_REPEATS = 30, 9  # phase 11b: calls a timed loop, loops a prefix
+
+
+def cli_train_main(argv) -> int:
+    """``chip_smoke.py --cli-train ARGS``: ``cli.train`` on phase 6's cut
+    synthetic domains, then one line of this process's kernel launches
+    (the training CLI that phase 11c's drill drives)."""
+    from dahpe_tpu_torch.cli import train as train_cli
+    from dahpe_tpu_torch.ops import gaussian, pseudo_label, shear
+
+    register_cut_domains()
+    kernels = Kernels(gaussian, pseudo_label, shear)
+    kernels.reset()
+    rc = train_cli.cli_main(argv)
+    print("chip_smoke launches " + json.dumps(kernels.read()), flush=True)
+    return rc
+
+
+def phase_host_warp(torch, kernels, smi):
+    """Phase 11a: ``cli.train --host-warp`` at full width (ResNet-101,
+    256²/64², batch 32, float32) on phase 6's cut synthetic domains: the
+    native library's build, one batch of its fused augmentation against
+    the numpy version (``tests/test_native.py``'s rtol/atol 1e-3), the
+    warped loader's img/s with ``HOST_WARP_WORKERS`` threads against the
+    DA loop's demand, then a pretrain epoch (PIL batches) and a DA epoch
+    (warped batches through the decoded cache, Gaussian targets and
+    pseudo-labels on the card): ms/iter in the loop, the profiled
+    iteration's idle share, and the launches the counts imply."""
+    from dahpe_tpu_torch.cli import train as train_cli
+    from dahpe_tpu_torch.cli.args import build_parser
+    from dahpe_tpu_torch.cli.common import maybe_decoded_cache
+    from dahpe_tpu_torch.data import BatchLoader, get_dataset, host_warp
+    from dahpe_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    _, build = native.build()
+    rng = np.random.default_rng(11)
+    frames = rng.integers(0, 256, (BATCH, RAW, RAW, 3), dtype=np.uint8)
+    worst = 0.0
+    for img in frames:
+        mat, off, _, _, _ = host_warp.sample_affine(rng, RAW, RAW, IMAGE, 180.0, (0.6, 1.3))
+        ops, factors, sigma = rng.permutation(3), rng.uniform(0.75, 1.25, 3), rng.uniform(0, 0.8)
+        got = native.fused_augment(img, mat, off, IMAGE, ops, factors, sigma)
+        want = host_warp.augment_plain(img, mat, off, IMAGE, ops, factors, sigma)
+        if not np.allclose(got, want, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"11a: native warp vs numpy {np.abs(got - want).max()}")
+        worst = max(worst, float(np.abs(got - want).max()))
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_warp")
+    shutil.rmtree(root, ignore_errors=True)
+    register_cut_domains()
+    iters, profiled = 8, 1
+    argv = ["unused", "-s", "SyntheticHandsSource", "-t", "SyntheticHandsTarget", "-a", CLI_ARCH,
+            "--device", CLI_DEVICE, "-b", str(BATCH), "--image-size", str(IMAGE),
+            "--heatmap-size", str(HEATMAP), "--host-warp", "--workers", str(HOST_WARP_WORKERS),
+            "--print-freq", "100", "--seed", "3", "--decoded-cache", os.path.join(root, "cache"),
+            "--pretrain-epochs", "1", "--epochs", "1", "-i", str(iters), "--profile",
+            str(profiled), "--log", os.path.join(root, "run")]
+    args = build_parser("train").parse_args(argv)
+    source = maybe_decoded_cache(args, get_dataset(
+        "SyntheticHandsSource", root="unused", image_size=(IMAGE, IMAGE),
+        heatmap_size=(HEATMAP, HEATMAP)))
+    loader = BatchLoader(source, BATCH, num_workers=HOST_WARP_WORKERS, seed=0, warped=True,
+                         image_size=IMAGE)
+    stamps = [time.perf_counter() for _ in loader]  # one epoch; the first batch warms up
+    loader_img_s = (len(stamps) - 1) * BATCH / (stamps[-1] - stamps[0])
+
+    starts = []
+    real_step = train_cli.make_da_train_step
+
+    def timed_step(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def timed(*args):
+            starts.append(time.perf_counter())
+            return step(*args)
+        return timed
+
+    kernels.reset()
+    train_cli.make_da_train_step = timed_step
+    t1 = time.perf_counter()
+    try:
+        train_cli.main(args)
+    finally:
+        train_cli.make_da_train_step = real_step
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    launches = kernels.read()
+    loop = starts[2 + profiled:]
+    ms = (loop[-1] - loop[0]) * 1e3 / (len(loop) - 1)
+    records = [json.loads(r) for r in open(os.path.join(root, "run", "metrics.jsonl"))]
+    da = records[-1]
+    if [r["kind"] for r in records] != ["pretrain_epoch", "da_epoch"] or not all(
+            np.isfinite(da[k]) for k in ("loss_s", "loss_gf", "loss_gt")):
+        raise AssertionError(f"11a: metrics {records}")
+    with open(os.path.join(root, "run", "trace", "summary.json")) as fh:
+        profile = json.load(fh)
+    # 7 / 3 / 0 a DA iteration (2 targets in finalize_batch, 5 in the
+    # step; no rotation on the host-fed path), 1 a pretrain step, 1 an
+    # eval batch (source after the pretrain, source and target after DA)
+    val_batches = -(-CLI_VAL // BATCH)
+    da_iters = 2 + profiled + iters
+    expected = dict(NO_LAUNCHES, render_gaussian=7 * da_iters + iters + 3 * val_batches,
+                    pseudo_labels=3 * da_iters)
+    if launches != expected:
+        raise AssertionError(f"11a: launches {launches}, expected {expected}")
+    shutil.rmtree(root, ignore_errors=True)
+    line("phase 11a cli.train --host-warp resnet101 256²/64², batch 32, float32", {
+        "card": smi, "seconds": time.perf_counter() - t0,
+        "native_build": {"built": build["built"], "seconds": build["seconds"]},
+        "native_vs_numpy": {"max_abs_err": worst, "rtol": 1e-3, "atol": 1e-3},
+        "loader": {"workers": HOST_WARP_WORKERS, "img_per_s": loader_img_s,
+                   "batches": len(stamps)},
+        "cli_ms_per_iter": ms, "loop_iterations_timed": len(loop),
+        "demand_img_per_s": 2 * BATCH * 1e3 / ms, "run_s": run_s,
+        "profile_one_iteration": profile, "target_pck": da["val_target"]["all"],
+        "data_cut": {"train_frames": CLI_TRAIN, "val_frames": CLI_VAL},
+        "launches": launches, "expected_launches": expected})
+    return launches
+
+
+def phase_perf_audit(torch, kernels, smi):
+    """Phase 11b: ``experiments.perf_audit`` at phase 5's configuration
+    (batch 32 from a 288² uint8 store of 256 frames, 256² out, 64² targets),
+    float32 and bf16: each stage's ms, the stages' sum (the last prefix)
+    against the whole producer's ms (within 10%), and the rotation and
+    Gaussian kernels' launches against the count the timed calls imply."""
+    from dahpe_tpu_torch.data import DeviceDataStore
+    from dahpe_tpu_torch.experiments import perf_audit
+
+    t0 = time.perf_counter()
+    store = DeviceDataStore(perf_audit.SeededFrames(256, RAW), device=CLI_DEVICE, raw_size=RAW,
+                            verbose=False)
+    runs, launches = {}, dict(NO_LAUNCHES)
+    for name, dtype in (("float32", None), ("bf16", torch.bfloat16)):
+        kernels.reset()
+        audit = perf_audit.run_audit(store, batch=BATCH, image_size=IMAGE, heatmap_size=HEATMAP,
+                                     dtype=dtype, iters=AUDIT_ITERS, repeats=AUDIT_REPEATS,
+                                     verbose=False)
+        torch.cuda.synchronize()
+        counts = kernels.read()
+        calls = 5 + AUDIT_REPEATS * AUDIT_ITERS  # timed_ms's warm-up, then its loops
+        want = dict(NO_LAUNCHES, rotate3_fused=7 * calls, render_gaussian=2 * calls)
+        if counts != want:
+            raise AssertionError(f"11b {name}: launches {counts}, expected {want}")
+        share = audit["stages_sum_ms"] / audit["producer_ms"]
+        if not 0.9 <= share <= 1.1:
+            raise AssertionError(f"11b {name}: stages sum to {audit['stages_sum_ms']} ms, the "
+                                 f"producer takes {audit['producer_ms']} ms")
+        runs[name] = {**audit, "sum_over_producer": share, "launches": counts}
+        for k, v in counts.items():
+            launches[k] += v
+    line("phase 11b perf_audit producer stages, batch 32, 288² store → 256², 64² targets", {
+        "card": smi, "seconds": time.perf_counter() - t0, "runs": runs,
+        "timing": f"CUDA events, median of {AUDIT_REPEATS} loops of {AUDIT_ITERS} calls "
+                  "after 5 warm-up calls"})
+    return launches
+
+
+def phase_drill(torch, smi):
+    """Phase 11c: ``experiments.preempt_drill`` through the port's CLI at
+    full width (ResNet-101, 256²/64², batch 32, ``--device-store``, bf16,
+    the drill's defaults) on phase 6's cut synthetic domains: SIGTERM lands
+    mid-epoch, the preempted process exits 0 with ``latest`` mid-epoch, the
+    resume prints the exact iteration, every epoch's checkpoint exists. Cut
+    in depth: ``DRILL_ITERS`` iterations an epoch, 2 epochs, saves every 4,
+    the signal after iteration 2. Its two processes' launches are read from
+    their logs."""
+    from dahpe_tpu_torch.experiments.preempt_drill import run_drill
+
+    t0 = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_drill")
+    shutil.rmtree(root, ignore_errors=True)
+    result = run_drill(root, arch=CLI_ARCH, image_size=IMAGE, heatmap_size=HEATMAP,
+                       batch=BATCH, iters=DRILL_ITERS, epochs=2, save_every=4,
+                       signal_after_iter=2, print_freq=1, device=CLI_DEVICE, poll_s=0.5,
+                       timeout_s=600, verbose=False,
+                       command=(sys.executable, os.path.abspath(__file__), "--cli-train"))
+    launches = dict(NO_LAUNCHES)
+    for log in ("phase1.log", "phase2.log"):
+        with open(os.path.join(root, log)) as fh:
+            counts = json.loads(fh.read().rsplit("chip_smoke launches ", 1)[1].splitlines()[0])
+        for k, v in counts.items():
+            launches[k] += v
+    # 7 / 3 / 2 a DA iteration over the 2 epochs, 1 Gaussian an eval batch
+    # (source and target after each epoch; the preempted process validates
+    # nothing)
+    da_iters, val_batches = 2 * DRILL_ITERS, -(-CLI_VAL // BATCH)
+    expected = dict(NO_LAUNCHES, render_gaussian=7 * da_iters + 2 * 2 * val_batches,
+                    pseudo_labels=3 * da_iters, rotate3_fused=2 * da_iters)
+    if launches != expected:
+        raise AssertionError(f"11c: launches {launches}, expected {expected}")
+    shutil.rmtree(root, ignore_errors=True)  # the checkpoints: several GB
+    line("phase 11c preempt_drill cli.train --device-store --bf16 resnet101 256²/64², batch 32", {
+        "card": smi, "seconds": time.perf_counter() - t0, "result": result,
+        "checks": {"preempted_exit_0_latest_mid_epoch": True, "resume_exact_iteration": True,
+                   "every_epoch_checkpoint": True},
+        "cut": {"iters_per_epoch": DRILL_ITERS, "default_iters_per_epoch": 100, "epochs": 2,
+                "save_every": 4, "signal_after_iter": 2, "train_frames": CLI_TRAIN,
+                "val_frames": CLI_VAL},
+        "launches": launches})
+    return launches
+
+
+def phase_regda(torch, models, smi):
+    """Phase 11d: ``RegDAPoseResNet(resnet101)`` at full width with seeded
+    weights: its eval output ``y_adv2`` (and ``y``, ``y_adv``) for 1 and 32
+    frames on the card against the same model on the CPU, at phase 3's
+    tolerance (rtol 2e-3, atol max(2e-4, 1e-4·std))."""
+    t0 = time.perf_counter()
+    model = seed_weights(torch, models.RegDAPoseResNet(models.resnet101(), num_keypoints=JOINTS),
+                         seed=13)
+    cpu_model = copy.deepcopy(model)
+    model = model.to(CLI_DEVICE)
+    rng = np.random.default_rng(13)
+    results = {}
+    for n in (1, 32):
+        x = torch.from_numpy(rng.standard_normal((n, IMAGE, IMAGE, 3)).astype(np.float32))
+        with torch.no_grad():
+            got = {k: v.cpu() for k, v in model(x.to(CLI_DEVICE)).items()}
+            want = cpu_model(x)
+        errs = {}
+        for k in ("y", "y_adv", "y_adv2"):
+            if tuple(got[k].shape) != (n, HEATMAP, HEATMAP, JOINTS):
+                raise AssertionError(f"11d: {k} shape {tuple(got[k].shape)}")
+            atol = max(2e-4, 1e-4 * float(want[k].std()))
+            errs[k] = float((got[k] - want[k]).abs().max())
+            if not torch.allclose(got[k], want[k], rtol=2e-3, atol=atol):
+                raise AssertionError(f"11d: {k} card vs CPU at {n} frames, max abs {errs[k]}")
+        results[n] = errs
+    del model
+    torch.cuda.empty_cache()
+    line("phase 11d RegDAPoseResNet resnet101 256²/64²/21 eval, card vs CPU", {
+        "card": smi, "seconds": time.perf_counter() - t0, "max_abs_err": results,
+        "rtol": 2e-3, "atol": "max(2e-4, 1e-4·std)"})
 
 
 def main() -> int:
@@ -3033,7 +3322,8 @@ def main() -> int:
                           "chip_smoke_parallel")
     # main paths 12 and 13: two ranks' iteration and the CLI, each rank a
     # process of its own that counts its launches from 0
-    rank_launches = phase_parallel_two_ranks(torch, models, train, smi, stores, root10)
+    rank_launches = phase_parallel_two_ranks(torch, models, train, smi, stores, root10,
+                                             floor_worlds=(4,))
     del stores
     torch.cuda.empty_cache()
     rank_launches += phase_parallel_cli(torch, smi, root10)
@@ -3045,6 +3335,23 @@ def main() -> int:
                                               "build", "chip_smoke_serving"))
     shutil.rmtree(root10, ignore_errors=True)
     line("phase 10 data parallel", {"card": smi, "phase_10_s": time.perf_counter() - t10})
+    torch.cuda.empty_cache()
+
+    # phase 11: the host-warp path, the producer's stages, the drill, RegDA
+    t11 = time.perf_counter()
+    # main path 14: cli.train --host-warp
+    for name, count in phase_host_warp(torch, kernels, smi).items():
+        launches[name] += count
+    torch.cuda.empty_cache()
+    for name, count in phase_perf_audit(torch, kernels, smi).items():  # main path 15
+        launches[name] += count
+    torch.cuda.empty_cache()
+    # main path 16: the drill's two CLI processes, which count their own
+    for name, count in phase_drill(torch, smi).items():
+        launches[name] += count
+    phase_regda(torch, models, smi)  # no path kernel: frames in, heatmaps out
+    line("phase 11 host warp, producer stages, drill, RegDA",
+         {"card": smi, "phase_11_s": time.perf_counter() - t11})
 
     sources = {
         "render_gaussian": ("render_gaussian.cu", "dahpe_tpu/ops/pallas/gaussian.py:45"),
@@ -3119,4 +3426,6 @@ if __name__ == "__main__":
         sys.exit(worker_main(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--cards"]:
         sys.exit(main_cards())
+    if sys.argv[1:2] == ["--cli-train"]:  # phase 11c's training CLI (cli_train_main)
+        sys.exit(cli_train_main(sys.argv[2:]))
     sys.exit(main())

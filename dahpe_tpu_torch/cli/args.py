@@ -1,10 +1,7 @@
 """Shared argparse flags, mirroring the reference CLI (``train1.py:602-674``).
 
 Port of ``dahpe_tpu/cli/args.py``: the same flags and defaults, plus
-``--device`` (default ``cuda``; the CPU runs only when asked for). Flags
-whose paths are not ported yet are accepted by the parser and refused by
-the CLIs with the ROADMAP item that ports them
-(:func:`dahpe_tpu_torch.cli.common.refuse_unported`).
+``--device`` (default ``cuda``; the CPU runs only when asked for).
 """
 
 from __future__ import annotations
@@ -100,7 +97,10 @@ def build_parser(phase: str = "train") -> argparse.ArgumentParser:
                         help="bfloat16 compute dtype (parameters, BN statistics "
                              "and labels stay float32)")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-process data parallelism; not ported yet")
+                        help="join a torch.distributed process group (the "
+                             "DAHPE_* or torchrun environment) so the job "
+                             "spans every rank: each rank drives its own "
+                             "device and loads a disjoint data shard")
     parser.add_argument("--device-store", action="store_true",
                         help="upload the pre-decoded dataset to the device "
                              "once (data/device_store.py) and run the ENTIRE "
@@ -125,7 +125,11 @@ def build_parser(phase: str = "train") -> argparse.ArgumentParser:
                              "is materialized once, after which fetches are "
                              "mmap reads (--device-aug, --device-store)")
     parser.add_argument("--host-warp", action="store_true",
-                        help="native fused host augmentation; not ported yet")
+                        help="fused C++ augmentation on the host (one "
+                             "resample for rotate+crop+resize, jitter, blur, "
+                             "normalize; the native library is built with g++ "
+                             "into build/native/ on first use), Gaussian "
+                             "targets on the device")
     if phase == "test":
         parser.add_argument("--checkpoint", type=str, default=None,
                             help="checkpoint to evaluate (checkpoint dir of "

@@ -17,20 +17,7 @@ import torch
 from dahpe_tpu_torch import models, parallel
 from dahpe_tpu_torch.data import BatchLoader, DecodedCache, get_dataset
 from dahpe_tpu_torch.data import transforms as T
-
-# flag -> why it is refused: paths of the JAX package not ported yet
-_UNPORTED = {
-    "host_warp": "--host-warp (the native fused host warp) is not ported yet "
-                 "(ROADMAP.md queue 1 item 8)",
-}
-
-
-def refuse_unported(args) -> None:
-    """Raise ``SystemExit`` naming the ROADMAP item of any flag whose path is
-    not ported; none of them is silently ignored."""
-    for flag, why in _UNPORTED.items():
-        if getattr(args, flag, None):
-            raise SystemExit(why)
+from dahpe_tpu_torch.utils import native
 
 
 def validate_steps_per_call(args) -> int:
@@ -128,10 +115,14 @@ def build_datasets(args, *, val_only: bool = False):
 
 def train_loader_mode(args) -> str:
     """Which host pipeline the train loaders use: ``pil`` (reference-parity
-    transforms) or ``raw`` (decode-only, augmentation on the device)."""
+    transforms), ``raw`` (decode-only, augmentation on the device) or
+    ``warped`` (the native fused host augmentation, ``--host-warp``);
+    ``--device-aug`` wins over ``--host-warp``, as in the JAX package."""
+    if getattr(args, "device_aug", False):
+        return "raw"
     if getattr(args, "host_warp", False):
-        raise SystemExit(_UNPORTED["host_warp"])
-    return "raw" if getattr(args, "device_aug", False) else "pil"
+        return "warped"
+    return "pil"
 
 
 def maybe_decoded_cache(args, dataset, *, raw_size: int = 288):
@@ -150,15 +141,18 @@ def build_train_loader(args, dataset, *, seed_offset: int = 0, mode: str = "pil"
     """One shuffled train loader in the requested pipeline mode. Under
     ``--multihost`` each rank loads a disjoint shard of every epoch and its
     ``batch / W`` rows of the global batch."""
-    if mode not in ("pil", "raw"):
+    if mode not in ("pil", "raw", "warped"):
         raise ValueError(f"unknown train loader mode {mode!r}")
-    if mode == "raw":
+    if mode == "warped":
+        native.load()  # a library that does not build fails the run here
+    if mode != "pil":
         # the PIL mode is the reference-parity path, uncached on purpose
         dataset = maybe_decoded_cache(args, dataset)
     world = parallel.world_size()
     return BatchLoader(dataset, args.batch_size // world, shuffle=True, drop_last=True,
                        num_workers=args.workers, seed=args.seed + seed_offset,
-                       raw=mode == "raw", host_index=parallel.rank(), host_count=world)
+                       raw=mode == "raw", warped=mode == "warped", image_size=args.image_size,
+                       host_index=parallel.rank(), host_count=world)
 
 
 def build_val_loader(args, dataset):

@@ -25,7 +25,6 @@ from dahpe_tpu_torch.cli.common import (
     build_model,
     build_val_loader,
     make_visualizer,
-    refuse_unported,
 )
 from dahpe_tpu_torch.evaluate import make_artifact_eval_step, make_eval_step, validate
 from dahpe_tpu_torch.utils import checkpoint as ckpt
@@ -35,9 +34,6 @@ from dahpe_tpu_torch.utils.logging import RunLogger
 def main(args) -> dict:
     """Evaluate ``args.checkpoint`` or ``args.artifact``; returns
     ``{"source": pck, "target": per-group pck}``."""
-    # argument contract first: failing after the dataset build and upload
-    # would waste minutes on a usage error
-    refuse_unported(args)
     if (args.checkpoint is None) == (args.artifact is None):
         raise SystemExit("pass exactly one of --checkpoint / --artifact")
     logger = RunLogger(args.log, "test")

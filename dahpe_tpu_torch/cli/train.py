@@ -21,7 +21,9 @@ split.
 
 Input modes of the DA loop: ``pil`` (host PIL transforms, targets on the
 device), ``raw`` (``--device-aug``: host decode only, augmentation on the
-device through the rotation kernel) and ``--device-store`` (the fused
+device through the rotation kernel), ``warped`` (``--host-warp``: the
+native library's fused warp and photometrics on the host, targets on the
+device) and ``--device-store`` (the fused
 iteration: gather, augmentation, targets and the step from device-resident
 data, no host traffic).
 
@@ -37,9 +39,9 @@ one iteration a call, whose batches the fused call returns.
 
 Deliberate divergences from the JAX package's CLI: ``--steps-per-call`` is
 checked before anything runs on every input mode, and a K below 1 is
-rejected, not coerced; the stop poller's cadence counts steps, not calls.
-Flags whose paths are not ported raise ``SystemExit`` naming their ROADMAP
-item.
+rejected, not coerced; the stop poller's cadence counts steps, not calls;
+``--host-warp`` raises with the compiler's error when its native library
+does not build, where the JAX package falls back to numpy.
 """
 
 from __future__ import annotations
@@ -69,7 +71,6 @@ from dahpe_tpu_torch.cli.common import (
     check_world,
     make_visualizer,
     maybe_decoded_cache,
-    refuse_unported,
     train_loader_mode,
     validate_steps_per_call,
 )
@@ -272,7 +273,6 @@ def pretrain_phase(args, logger, train_source_loader, val_source_loader,
 def main(args):
     # argument contract first: failing after the dataset build and upload
     # would waste minutes on a usage error
-    refuse_unported(args)
     validate_steps_per_call(args)
     started_group = False
     if args.multihost:

@@ -1,7 +1,10 @@
 """Heatmap → keypoint decoding and heatmap resizing.
 
 Port of ``dahpe_tpu/core/decode.py``: ``get_max_preds`` (the reference's
-numpy ``utils/keypoint_detection.py:7-35``) and ``upsample_bilinear``.
+numpy ``utils/keypoint_detection.py:7-35``), the soft-argmax decode
+(``compute_uv_from_heatmaps3``, ``:209-239``), the upsample-then-argmax
+decode (``compute_uv_from_heatmaps{,2}``, ``:155-205``) and
+``upsample_bilinear``. Heatmaps are ``(B, H, W, K)``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,27 @@ def get_max_preds(heatmaps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     preds = torch.stack([px, py], dim=-1)  # (B, K, 2)
     mask = (maxvals > 0.0).to(torch.float32)[..., None]
     return preds * mask, maxvals[..., None]
+
+
+def soft_argmax_decode(heatmaps: torch.Tensor, *, temperature: float = 100.0,
+                       scale: float = 4.0) -> torch.Tensor:
+    """Differentiable soft-argmax decode, ``(B, H, W, K)`` → ``(B, K, 2)``
+    ``(x, y)``: the softmax of ``temperature · heatmap`` over all pixels,
+    the expectation of the pixel grid, times ``scale`` (image pixels)."""
+    b, h, w, k = heatmaps.shape
+    p = torch.softmax(heatmaps.reshape(b, h * w, k) * temperature, dim=1).reshape(b, h, w, k)
+    ys = torch.arange(h, dtype=heatmaps.dtype, device=heatmaps.device)[None, :, None, None]
+    xs = torch.arange(w, dtype=heatmaps.dtype, device=heatmaps.device)[None, None, :, None]
+    ey = torch.sum(p * ys, dim=(1, 2))  # (B, K)
+    ex = torch.sum(p * xs, dim=(1, 2))
+    return torch.stack([ex, ey], dim=-1) * scale
+
+
+def decode_uv_from_heatmaps(heatmaps: torch.Tensor, resize_dim: tuple[int, int]) -> torch.Tensor:
+    """Bilinear upsample to ``resize_dim``, then the argmax decode:
+    ``(B, H, W, K)`` → ``(B, K, 2)`` in ``resize_dim`` pixels."""
+    preds, _ = get_max_preds(upsample_bilinear(heatmaps, resize_dim))
+    return preds
 
 
 def upsample_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

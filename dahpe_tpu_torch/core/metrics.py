@@ -1,8 +1,9 @@
 """PCK evaluation on the device.
 
 Port of ``dahpe_tpu/core/metrics.py`` (``calc_dists`` / ``dist_acc`` /
-``pck_accuracy`` / ``group_accuracy``; the reference's
-``utils/keypoint_detection.py:38-92``).
+``pck_accuracy`` / ``group_accuracy``, the reference's
+``utils/keypoint_detection.py:38-92``; the mean joint errors and the 3-D
+PCK-AUC of ``accuracy_2d`` / ``accuracy_3d``, ``:95-136``).
 """
 
 from __future__ import annotations
@@ -110,3 +111,24 @@ def group_accuracy(
             n > 0, total / n.clamp(min=1).to(vals.dtype), torch.full_like(total, -1.0)
         )
     return out
+
+
+def mean_joint_error_2d(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean per-joint 2-D pixel error (``accuracy_2d``)."""
+    return torch.mean(torch.linalg.vector_norm(pred - target, dim=-1))
+
+
+def mean_joint_error_3d(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean per-joint 3-D error in mm of inputs in metres (``accuracy_3d``)."""
+    return torch.mean(torch.linalg.vector_norm((pred - target) * 1000.0, dim=-1))
+
+
+def pck_auc_3d(pred: torch.Tensor, target: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mean 3-D error in mm, PCK-AUC)``: the PCK at the thresholds 20, 23,
+    …, 50 mm, integrated by the trapezoid rule over the 30 mm span
+    (``accuracy_3d``)."""
+    d = torch.linalg.vector_norm((pred - target) * 1000.0, dim=-1)  # (B, K)
+    thresholds = torch.arange(20, 51, 3, dtype=torch.float32, device=pred.device)
+    pck = torch.mean((d[..., None] < thresholds).to(torch.float32), dim=(0, 1))
+    auc = torch.trapezoid(pck, thresholds) / 30.0
+    return mean_joint_error_3d(pred, target), auc

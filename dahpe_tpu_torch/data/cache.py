@@ -33,6 +33,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from dahpe_tpu_torch.data.datasets.base import warped_sample
+
 _MANIFEST = "manifest.json"
 _IMAGES = "images.u8"
 _META = "meta.npz"
@@ -119,7 +121,7 @@ class DecodedCache:
     ``__len__`` + metric/metadata attributes) so it drops into
     :class:`dahpe_tpu_torch.data.pipeline.BatchLoader` wherever the underlying
     dataset would. ``fetch_raw`` is a pure mmap read; ``fetch_warped`` (the
-    native host warp) raises until ``--host-warp`` is ported.
+    native host warp, ``--host-warp``) warps the cached crop.
 
     The full-PIL ``fetch`` path intentionally delegates to the underlying
     dataset: it is the reference-parity path, kept byte-identical rather
@@ -170,8 +172,9 @@ class DecodedCache:
             "intrinsic_matrix": self._intr[index].copy(),
         }
 
-    def fetch_warped(self, index: int, rng, **kwargs) -> dict:
-        raise NotImplementedError(
-            "fetch_warped needs the native host warp (--host-warp), not ported yet "
-            "(ROADMAP.md queue 1 item 8)"
-        )
+    def fetch_warped(self, index: int, rng, *, image_size: int = 256, rotation: float = 180.0,
+                     scale_range=(0.6, 1.3), jitter: float = 0.25, blur: float = 0.8) -> dict:
+        return warped_sample(np.asarray(self._images[index]), self._kp[index].copy(),
+                             self._intr[index].copy(), self._vis[index].copy(), rng,
+                             image_size=image_size, rotation=rotation, scale_range=scale_range,
+                             jitter=jitter, blur=blur)

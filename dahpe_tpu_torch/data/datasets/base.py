@@ -5,9 +5,7 @@ Port of ``dahpe_tpu/data/datasets/base.py`` (reference:
 aggregation and the 21-hand-keypoint grouping that every reported metric
 uses. Samples come back as numpy dicts; the Gaussian targets are rendered
 batched on the device (:func:`dahpe_tpu_torch.data.pipeline.finalize_batch`).
-
-Left out: ``fetch_warped`` raises until ``--host-warp`` (the native host
-warp) is ported. ``visualize`` (``--debug``) imports cv2 when it draws.
+``visualize`` (``--debug``) imports cv2 when it draws.
 """
 
 from __future__ import annotations
@@ -69,12 +67,17 @@ class KeypointDataset:
             "intrinsic_matrix": intrinsic_matrix.astype(np.float32),
         }
 
-    def fetch_warped(self, index: int, rng: np.random.Generator, **kwargs) -> dict:
-        """The native fused host warp of the JAX package; not ported yet."""
-        raise NotImplementedError(
-            "fetch_warped needs the native host warp (--host-warp), not ported yet "
-            "(ROADMAP.md queue 1 item 8)"
-        )
+    def fetch_warped(self, index: int, rng: np.random.Generator, *, image_size: int = 256,
+                     rotation: float = 180.0, scale_range=(0.6, 1.3), jitter: float = 0.25,
+                     blur: float = 0.8) -> dict:
+        """``--host-warp``: decode + crop, then ONE fused native warp
+        (rotation + random-resized crop + resize in a single resample),
+        jitter, blur and normalize (:func:`dahpe_tpu_torch.data.host_warp.
+        warp_augment`); the Gaussian targets follow on the device."""
+        image, keypoint2d, intrinsic_matrix, visible = self._crop_raw(index)
+        return warped_sample(np.asarray(image, dtype=np.uint8), keypoint2d, intrinsic_matrix,
+                             visible, rng, image_size=image_size, rotation=rotation,
+                             scale_range=scale_range, jitter=jitter, blur=blur)
 
     def __getitem__(self, index: int) -> dict:
         return self.fetch(index, np.random.default_rng(index))
@@ -110,6 +113,19 @@ class KeypointDataset:
         for kp in keypoints:
             cv2.circle(img, (int(kp[0]), int(kp[1])), 3, colors["black"], 1)
         cv2.imwrite(filename, img)
+
+
+def warped_sample(image_u8, keypoint2d, intrinsic_matrix, visible, rng, *, image_size,
+                  rotation, scale_range, jitter, blur) -> dict:
+    """The ``fetch_warped`` sample of one decoded crop (datasets and the
+    decoded cache share it)."""
+    from dahpe_tpu_torch.data.host_warp import warp_augment
+
+    img, kp, intr = warp_augment(image_u8, keypoint2d.astype(np.float32),
+                                 intrinsic_matrix.astype(np.float32), rng, out_size=image_size,
+                                 rotation=rotation, scale_range=tuple(scale_range),
+                                 jitter=jitter, blur=blur)
+    return {"image": img, "keypoint2d": kp, "visible": visible, "intrinsic_matrix": intr}
 
 
 class Hand21KeypointDataset(KeypointDataset):
@@ -152,3 +168,31 @@ class Hand21KeypointDataset(KeypointDataset):
             colored_skeleton=colored_skeleton,
             **kwargs,
         )
+
+
+class Body16KeypointDataset(KeypointDataset):
+    """16 body keypoints with the reference's grouping
+    (``keypoint_dataset.py:74-112``), for the reference's generic keypoint
+    layer; no dataset of the repo uses it."""
+
+    head = (9,)
+    shoulder = (12, 13)
+    elbow = (11, 14)
+    wrist = (10, 15)
+    hip = (2, 3)
+    knee = (1, 4)
+    ankle = (0, 5)
+    all = (12, 13, 11, 14, 10, 15, 2, 3, 1, 4, 0, 5)
+
+    def __init__(self, root, samples, **kwargs):
+        keypoints_group = {
+            "head": self.head,
+            "shoulder": self.shoulder,
+            "elbow": self.elbow,
+            "wrist": self.wrist,
+            "hip": self.hip,
+            "knee": self.knee,
+            "ankle": self.ankle,
+            "all": self.all,
+        }
+        super().__init__(root, 16, samples, keypoints_group=keypoints_group, **kwargs)

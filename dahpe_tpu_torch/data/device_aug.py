@@ -273,3 +273,22 @@ def _gather_warp(images: torch.Tensor, params: dict, out_size: int) -> torch.Ten
     src_x = cos * (s * px) - sin * (s * py) + (cos * ox - sin * oy) + w / 2.0 - 0.5
     src_y = sin * (s * px) + cos * (s * py) + (sin * ox + cos * oy) + h / 2.0 - 0.5
     return _bilinear_sample(images, torch.stack([src_x, src_y], dim=-1))
+
+
+def resize_batch(images: torch.Tensor, keypoints: torch.Tensor, intrinsics: torch.Tensor, *,
+                 out_size: int = 256) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Eval-time square resize + normalize of ``(B, H, W, 3)`` images in
+    [0, 255] (the val transform), keypoints and intrinsics scaled to match.
+
+    ``jax.image.resize(method="linear")`` antialiases when it shrinks: its
+    triangle kernel widens by the scale factor and is renormalised at the
+    edges, which is ``F.interpolate``'s bilinear with ``antialias=True``;
+    when it enlarges both are plain edge-clamped bilinear."""
+    x = images.to(torch.float32).permute(0, 3, 1, 2)
+    out = F.interpolate(x, size=(out_size, out_size), mode="bilinear", align_corners=False,
+                        antialias=True)
+    consts = _constants(out.device)
+    out = ((out / 255.0 - consts["mean"]) / consts["std"]).permute(0, 2, 3, 1)
+    factor = out_size / images.shape[2]
+    scale = torch.where(consts["intrinsics_scaled"], factor, 1.0)
+    return out, keypoints * factor, intrinsics * scale

@@ -6,6 +6,7 @@ pin_memory=True)`` + ``ForeverDataIterator``, ``train1.py:76-77``,
 ``utils/data.py:4-19``):
 
   host threads: file read + decode + crop + PIL transforms → numpy batch
+                (or, warped, one fused native warp + photometrics a sample)
   device:       Gaussian targets (``generate_target``, the CUDA kernel on the
                 card), or for raw batches the whole augmentation
                 (:func:`device_train_batch`, the rotation kernel on the
@@ -81,7 +82,9 @@ class BatchLoader:
     seed, the epoch and its worker id, so augmentation is reproducible per
     worker; the batch order is the seeded epoch permutation (``seed +
     epoch``), of which host ``host_index`` of ``host_count`` takes a
-    disjoint stride.
+    disjoint stride. ``raw`` fetches decoded uint8 crops of ``raw_size``
+    (``--device-aug``), ``warped`` the native library's augmented
+    ``image_size`` frames (``--host-warp``), else the PIL transforms.
     """
 
     def __init__(
@@ -96,6 +99,8 @@ class BatchLoader:
         prefetch: int = 4,
         raw: bool = False,
         raw_size: int = 288,
+        warped: bool = False,
+        image_size: int = 256,
         host_index: int = 0,
         host_count: int = 1,
     ):
@@ -108,6 +113,8 @@ class BatchLoader:
         self.prefetch = prefetch
         self.raw = raw
         self.raw_size = raw_size
+        self.warped = warped
+        self.image_size = image_size
         self.host_index = host_index
         self.host_count = host_count
         self._epoch = 0
@@ -155,7 +162,10 @@ class BatchLoader:
                     bi, idxs = idx_q.get_nowait()
                 except queue.Empty:
                     return
-                if self.raw:
+                if self.warped:
+                    items = [self.dataset.fetch_warped(int(i), rng, image_size=self.image_size)
+                             for i in idxs]
+                elif self.raw:
                     items = [self.dataset.fetch_raw(int(i), rng, self.raw_size) for i in idxs]
                 else:
                     items = [self.dataset.fetch(int(i), rng) for i in idxs]

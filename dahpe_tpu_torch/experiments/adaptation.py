@@ -44,6 +44,20 @@ def _eval_target(model, loader, dataset, *, image_size, heatmap_size, eval_step)
                     eval_step=eval_step)["all"]
 
 
+def make_backbone(arch: str, dtype=None) -> torch.nn.Module:
+    """``'mini'``: a [1,1,1,1]-bottleneck ResNet; ``'micro'``: a [1,1,1,1]
+    BasicBlock one (stage widths 64..512 without the 4x bottleneck
+    expansion, ~20x cheaper than ``'mini'`` end to end); else the named
+    backbone of ``models.BACKBONES``."""
+    from dahpe_tpu_torch import models
+
+    if arch == "mini":
+        return models.ResNet(models.Bottleneck, [1, 1, 1, 1], dtype=dtype)
+    if arch == "micro":
+        return models.ResNet(models.BasicBlock, [1, 1, 1, 1], dtype=dtype)
+    return models.get_backbone(arch, dtype=dtype)
+
+
 def warm_start(da_model: torch.nn.Module, pretrained: dict) -> None:
     """Load the pretrain state dict into the multi-head DA model, key-filtered
     (``utils.torch_import.filtered_update``): backbone and upsampling
@@ -96,7 +110,6 @@ def run_adaptation_experiment(
     from dahpe_tpu_torch.data.device_store import DeviceDataStore
     from dahpe_tpu_torch.data.synthetic import SyntheticHands
     from dahpe_tpu_torch.evaluate import make_eval_step
-    from dahpe_tpu_torch.models.resnet import BasicBlock, Bottleneck
     from dahpe_tpu_torch.train import (
         create_da_state,
         create_pretrain_state,
@@ -138,22 +151,13 @@ def run_adaptation_experiment(
 
     dtype = torch.bfloat16 if bf16 else None
 
-    def make_backbone():
-        if arch == "mini":
-            return models.ResNet(Bottleneck, [1, 1, 1, 1], dtype=dtype)
-        if arch == "micro":
-            # BasicBlock keeps the stage widths at 64..512 (no 4x Bottleneck
-            # expansion): ~20x cheaper than 'mini' end to end
-            return models.ResNet(BasicBlock, [1, 1, 1, 1], dtype=dtype)
-        return models.get_backbone(arch, dtype=dtype)
-
     aug = dict(image_size=image_size, heatmap_size=heatmap_size,
                rotation=rotation, scale_range=tuple(scale_range))
     evals = dict(image_size=image_size, heatmap_size=heatmap_size)
 
     # ---- phase 1: supervised source pretrain --------------------------
     torch.manual_seed(seed)
-    pre_model = models.PoseResNet(make_backbone(), num_keypoints=21, dtype=dtype)
+    pre_model = models.PoseResNet(make_backbone(arch, dtype), num_keypoints=21, dtype=dtype)
     pre_state = create_pretrain_state(pre_model, device=device)
     pre_fused = make_fused_pretrain_iteration(pre_model, src_store, batch, **aug)
     gen = src_store.generator(seed + 100)
@@ -184,7 +188,8 @@ def run_adaptation_experiment(
 
     # ---- DA: the full 3-step minimax from the same pretrain ------------
     torch.manual_seed(seed)
-    da_model = models.MultiHeadPoseResNet(make_backbone(), num_keypoints=21, dtype=dtype)
+    da_model = models.MultiHeadPoseResNet(make_backbone(arch, dtype), num_keypoints=21,
+                                          dtype=dtype)
     warm_start(da_model, pre_vars)
     da_state = create_da_state(da_model, device=device, with_ema=with_ema)
     da_fused = make_fused_da_iteration(

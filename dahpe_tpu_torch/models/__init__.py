@@ -3,6 +3,7 @@
 from dahpe_tpu_torch.models.batch_norm import BatchNorm2d
 from dahpe_tpu_torch.models.heads import DownsampleStage, FusionHead, PlainHead
 from dahpe_tpu_torch.models.pose_resnet import MultiHeadPoseResNet, PoseResNet
+from dahpe_tpu_torch.models.regda_baseline import RegDAPoseResNet
 from dahpe_tpu_torch.models.resnet import (
     BasicBlock,
     Bottleneck,
@@ -58,6 +59,7 @@ __all__ = [
     "PlainHead",
     "MultiHeadPoseResNet",
     "PoseResNet",
+    "RegDAPoseResNet",
     "ResNet",
     "ConvTranspose2dTorch",
     "Upsampling",

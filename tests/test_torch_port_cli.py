@@ -7,8 +7,8 @@ They cover the three input modes (``pil``, ``raw`` = ``--device-aug`` and
 and from a reference ``.pth``, ``--max-steps`` then ``--resume`` against a
 straight run (bit-identical on the CPU), the SIGTERM drain (exit 0), the
 NaN watchdog (exit 3), ``--bf16`` and the ``--debug`` drawings (pixel for
-pixel the JAX package's), and the flags that are refused with their
-ROADMAP item. The card runs the same CLI at full width in ``chip_smoke.py``
+pixel the JAX package's), the flag combinations that are refused, and the
+help texts. ``--host-warp`` is ``tests/test_torch_port_host_warp.py``'s. The card runs the same CLI at full width in ``chip_smoke.py``
 phases 6, 8b and 9d.
 """
 
@@ -226,17 +226,25 @@ def test_nan_watchdog_exits_3_and_keeps_latest_finite(roots, tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--host-warp"], "item 8"),
     (["--steps-per-call", "2"], "needs --device-store"),
     (["--steps-per-call", "0"], "at least 1"),
     (["--device-store", "--steps-per-call", "2", "--debug"], "without --debug"),
 ])
 def test_unported_flags_are_refused(roots, tmp_path, flags, item):
-    """Refused before anything is built, naming the ROADMAP item (or, for
-    ``--steps-per-call``, the rule broken); nothing is silently ignored."""
+    """Refused before anything is built, naming the rule broken; nothing is
+    silently ignored."""
     with pytest.raises(SystemExit, match=item):
         train_cli.cli_main(_argv(roots, tmp_path / "logs", *flags))
     assert not os.path.exists(tmp_path / "logs")
+
+
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_no_flag_help_says_not_ported(phase):
+    """Every flag the parser accepts runs: no help text still calls its
+    path unported (``--multihost`` and ``--host-warp`` once did)."""
+    stale = [a.option_strings for a in build_parser(phase)._actions
+             if "not ported" in (a.help or "")]
+    assert not stale, stale
 
 
 def _drawings(log) -> set[str]:

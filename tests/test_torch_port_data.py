@@ -174,7 +174,8 @@ def test_finalize_batch_targets_match_jax(roots):
 
 
 def test_decoded_cache_manifest_and_crops_match_jax(roots, tmp_path):
-    """Same manifest, crops and metadata: one cache directory serves both."""
+    """Same manifest, crops, metadata and warped samples: one cache
+    directory serves both."""
     ref, got = _pair("RenderedHandPose", roots["RenderedHandPose"], transforms=False)
     jc = JDecodedCache(ref, str(tmp_path / "jax"), raw_size=96, num_workers=2)
     pc = data.DecodedCache(got, str(tmp_path / "port"), raw_size=96, num_workers=2)
@@ -186,8 +187,10 @@ def test_decoded_cache_manifest_and_crops_match_jax(roots, tmp_path):
     # the JAX package's cache directory is valid for the port as it is
     reused = data.DecodedCache(got, str(tmp_path / "jax"), raw_size=96, build=False)
     _assert_items_equal(reused.fetch_raw(0, None), got.fetch_raw(0, None, 96))
-    with pytest.raises(NotImplementedError, match="host-warp"):
-        pc.fetch_warped(0, None)
+    # --host-warp through the cache: the native warp of the cached crop
+    for seed in range(2):
+        _assert_items_equal(jc.fetch_warped(seed, np.random.default_rng(seed), image_size=64),
+                            pc.fetch_warped(seed, np.random.default_rng(seed), image_size=64))
 
 
 def test_device_train_batch_is_the_augmentation_of_the_loader_batch(roots):
