@@ -113,11 +113,11 @@ line, fail the run by raising:
    each a process of this script (``--worker``), one DA iteration at global
    batch 32 + 32 (each rank's 16 + 16 rows from its store shard) against
    the same iteration at world 1: losses within rel 1e-4, every parameter
-   and BN statistic within 1e-4, all 373 parameters equal across the
-   ranks, 7 / 3 / 2 launches a rank, ms/iter and the collectives' share;
-   beside the gap, the float64 floor that classifies it: world 1 in
-   float64 against world 1 in float32 and against the ranks, also on the
-   global batch of 4 ranks' draws;
+   within 1e-4 and every BN statistic within twice the float64 floor (world
+   1 in float64 against world 1 in float32 on the same draws; also
+   reported against the ranks and on the global batch of 4 ranks' draws),
+   all 373 parameters equal across the ranks, 7 / 3 / 2 launches a rank,
+   ms/iter and the collectives' share;
    (c) ``cli.train --multihost --device-store`` over the two ranks on phase
    6's cut data: a pretrain epoch and a DA epoch cut by ``--max-steps``, in
    which SIGTERM to rank 1 alone drains both ranks at one step, rank 0
@@ -132,14 +132,25 @@ line, fail the run by raising:
    epoch with ms/iter in the loop, a profiled iteration's idle share and
    the launches the counts imply (7 / 3 / 0 a DA iteration); (b)
    ``experiments.perf_audit`` at phase 5's configuration in float32 and
-   bf16: each stage's ms, the stages' sum within 10% of the whole
-   producer's, the rotation and Gaussian launches the timed calls imply;
+   bf16: each stage's device ms from CUDA-graph replays, the stages' sum
+   within 10% of the whole producer's, the rotation and Gaussian launches
+   the warm-up calls and captures imply;
    (c) ``experiments.preempt_drill`` through the CLI (this script's
    ``--cli-train``: phase 6's cut domains) at full width, bf16: SIGTERM
    mid-epoch, exit 0, the resume at the exact iteration, every epoch's
    checkpoint, the two processes' launches; (d) ``RegDAPoseResNet(
    resnet101)``'s eval outputs for 1 and 32 frames on the card against
-   the CPU at phase 3's tolerance.
+   the CPU at phase 3's tolerance;
+12. the adaptation experiment over two ranks sharing the card over gloo,
+   spawned by ``parallel.run_ranks``, at the acceptance configuration
+   (resnet18, 128²/32², global batch 32, 512 + 128 frames a domain, shift
+   0.3, content 0.3, style 1.0, EMA 0.99, gate 0.5): (a) 2 + 2 + 2
+   iterations against one process on the same global draws, cuDNN
+   deterministic: losses within rel 1e-4, the DA and EMA states within
+   10b's bounds against their own float64 floor, the five PCKs within
+   0.01, one result and equal states on both ranks, each rank's launches
+   those the iterations imply; (b) 50 + 50 + 50 iterations at W = 2 and
+   W = 1: ms per DA iteration, the collectives' share, launches per rank.
 
 Then one JSON line of kernels, and the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -147,8 +158,9 @@ Then one JSON line of kernels, and the last line
     python3 chip_smoke.py --cards
 
 runs, on a machine with several cards, what needs them all: phase 1's
-build, 10d over every card on a float artifact it exports, and 10b with
-one rank per card over NCCL. It ends with the same last line.
+build, 10d over every card on a float artifact it exports, and 10b and
+12 with one rank per card over NCCL (12 at the experiment's rank count,
+gcd(32, cards)). It ends with the same last line.
 """
 
 from __future__ import annotations
@@ -1821,6 +1833,10 @@ def phase_artifacts(torch, models, kernels, smi, phase3, cli_best):
 
 GRAPH_K = 4  # --steps-per-call of phase 8
 ADAPT_ITERS = 200  # phase 8c: the acceptance run's 4000 + 3000 iterations cut to 200 + 200
+# the adaptation acceptance configuration (phases 8c, 9e, 12), iterations set per run
+ACCEPTANCE = dict(arch="resnet18", batch=32, n_train=512, n_val=128, image_size=128,
+                  heatmap_size=32, raw_size=160, shift=0.3, content=0.3, style=1.0,
+                  ema_decay=0.99, conf_gate=0.5, eval_every=100, seed=0, verbose=False)
 
 
 def live_tensors(state) -> list:
@@ -2171,11 +2187,8 @@ def phase_adaptation(torch, smi, bf16: bool = False):
 
     adaptation._eval_target = recorded
     try:
-        result = run_adaptation_experiment(
-            arch="resnet18", pre_iters=ADAPT_ITERS, da_iters=ADAPT_ITERS, batch=32,
-            n_train=512, image_size=128, heatmap_size=32, raw_size=160, shift=0.3,
-            content=0.3, style=1.0, ema_decay=0.99, conf_gate=0.5, eval_every=100, seed=0,
-            bf16=bf16, verbose=False)
+        result = run_adaptation_experiment(pre_iters=ADAPT_ITERS, da_iters=ADAPT_ITERS,
+                                           bf16=bf16, **ACCEPTANCE)
     finally:
         adaptation._eval_target = real_eval
     seconds = time.perf_counter() - t0
@@ -2394,15 +2407,11 @@ def phase_bf16_serving(torch, models, evaluate, smi):
 # ------------------------------------------------------------------ phase 10
 PARALLEL_WORLD = 2  # ranks of phases 10b and 10c, sharing the card over gloo
 WORKER_TIMEOUT = 600  # seconds a phase-10 rank may take
-DATA_PARALLEL_ATOL = 1e-4  # 2 ranks vs 1 process (tests/test_parallel.py:60-83)
-
-
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+DATA_PARALLEL_ATOL = 1e-4  # parameters, W ranks vs 1 process (tests/test_parallel.py:60-83)
+# BN statistics, W ranks vs 1 process: at most this many times float32's own
+# rounding there (world 1 in float32 against float64 on the same draws), the
+# criterion PERF.md §6 wrote down before the gap was measured
+BN_FLOOR_FACTOR = 2.0
 
 
 def rank_env(port: int, rank: int, world: int, backend: str | None = None) -> dict:
@@ -2595,6 +2604,8 @@ def run_workers(torch, job: str, outdir: str, world: int = PARALLEL_WORLD,
     ``backend``: gloo to share one card (NCCL refuses two ranks on one
     device), NCCL for one rank a card; their logs in ``outdir``. Any rank
     that fails fails the phase."""
+    from dahpe_tpu_torch.parallel.launch import free_port
+
     shutil.rmtree(outdir, ignore_errors=True)
     os.makedirs(outdir)
     port = free_port()
@@ -2636,6 +2647,7 @@ def phase_parallel_world1(torch, models, train, data, smi, phase5_ms, phase8a):
     import torch.distributed as dist
 
     from dahpe_tpu_torch import parallel
+    from dahpe_tpu_torch.parallel.launch import free_port
 
     t0 = time.perf_counter()
     saved_env = {k: v for k, v in os.environ.items() if k.startswith("DAHPE_")}
@@ -2798,17 +2810,19 @@ def phase_parallel_two_ranks(torch, models, train, smi, stores, root,
     one rank a card over NCCL), one DA iteration at global batch 32+32
     (32/W + 32/W a rank, each rank's rows from its shard) against the same
     iteration at world 1 on the same global batch, from the same weights:
-    losses within rel 1e-4, every parameter and BN statistic within
-    ``DATA_PARALLEL_ATOL``; the ranks' launches (7 / 3 / 2 an iteration),
+    losses within rel 1e-4, every parameter within ``DATA_PARALLEL_ATOL``
+    and every BN statistic within ``BN_FLOOR_FACTOR`` times the float64
+    floor on the same draws (below); the ranks' launches (7 / 3 / 2 an iteration),
     ms/iter and the collectives' share. cuDNN deterministic on both sides:
     at its defaults some algorithms sum in a varying order, and the
     world-1 iteration alone then moved a BN statistic by 9.2e-5 between
     runs on an NVIDIA H100 80GB HBM3 at 700 W, so the gap would be noise. Beside the gap, the world-1
     iteration at cuDNN's defaults against the deterministic one, and the
-    float64 floor that classifies the gap (PERF.md §6): the world-1
+    float64 floor that bounds the BN gap (PERF.md §6): the world-1
     iteration in float64 against the float32 one (float32's own rounding)
-    and against the ranks; ``floor_worlds`` adds that floor on the global
-    batches of other world sizes (the 4-rank draws on one card)."""
+    on the W-rank draws, and the ranks against float64; ``floor_worlds``
+    adds that floor on the global batches of other world sizes (the 4-rank
+    draws on one card)."""
     t0 = time.perf_counter()
     ranks = run_workers(torch, "step", os.path.join(root, "10b"), world, backend)
 
@@ -2866,17 +2880,18 @@ def phase_parallel_two_ranks(torch, models, train, smi, stores, root,
         if res["launches"] != expected:
             raise AssertionError(f"10b: rank {r} launches {res['launches']}, expected {expected}")
     bn_gap = worst["worst_abs"]["bn_statistics"]
-    bn_rounding = rounding["worst_abs"]["bn_statistics"]
+    bn_rounding = floors.get(world, rounding)["worst_abs"]["bn_statistics"]
+    bounds = {"parameters": DATA_PARALLEL_ATOL, "bn_statistics": BN_FLOOR_FACTOR * bn_rounding}
     classification = {
-        "criterion": "fault if the W-rank BN-statistics gap exceeds 2x the larger of JAX's "
-                     "1-vs-W device gap (CPU test) and the world-1 float32-vs-float64 gap",
+        "criterion": f"fault if the W-rank BN-statistics gap exceeds {BN_FLOOR_FACTOR}x the "
+                     "world-1 float32-vs-float64 gap on the same draws",
         "w_rank_gap": bn_gap, "float32_vs_float64": bn_rounding,
         "ranks_vs_float64": ranks_vs_f64, "gap_over_rounding": bn_gap / bn_rounding,
         "float64_floor_other_worlds": floors,
     }
-    if not max(worst["worst_abs"].values()) <= DATA_PARALLEL_ATOL:
-        raise AssertionError(f"10b: {world} ranks vs world 1 {worst}; world 1 at cuDNN's "
-                             f"defaults vs deterministic {floor}; float64 floor "
+    if not all(worst["worst_abs"][kind] <= bound for kind, bound in bounds.items()):
+        raise AssertionError(f"10b: {world} ranks vs world 1 {worst} against {bounds}; world 1 "
+                             f"at cuDNN's defaults vs deterministic {floor}; float64 floor "
                              f"{classification}")
     keys = ("ms_per_iter", "collective_calls_per_iter", "collective_ms_per_iter",
             "synchronized_iter_ms", "collective_share", "parameters_equal",
@@ -2888,7 +2903,7 @@ def phase_parallel_two_ranks(torch, models, train, smi, stores, root,
         "losses_rank_0": ranks[0]["losses"], "vs_world_1": worst,
         "cudnn_deterministic": True, "world_1_default_vs_deterministic": floor,
         "world_1_float32_vs_float64": rounding, "bn_classification": classification,
-        "bound": DATA_PARALLEL_ATOL, "ranks": [{k: res[k] for k in keys} for res in ranks]})
+        "bounds": bounds, "ranks": [{k: res[k] for k in keys} for res in ranks]})
     return [res["launches"] for res in ranks]
 
 
@@ -3096,9 +3111,10 @@ def phase_host_warp(torch, kernels, smi):
 def phase_perf_audit(torch, kernels, smi):
     """Phase 11b: ``experiments.perf_audit`` at phase 5's configuration
     (batch 32 from a 288² uint8 store of 256 frames, 256² out, 64² targets),
-    float32 and bf16: each stage's ms, the stages' sum (the last prefix)
-    against the whole producer's ms (within 10%), and the rotation and
-    Gaussian kernels' launches against the count the timed calls imply."""
+    float32 and bf16: each stage's device ms (CUDA-graph replays), the
+    stages' sum (the last prefix) against the whole producer's ms (within
+    10%), and the rotation and Gaussian kernels' launches against the count
+    the warm-up calls and captures imply."""
     from dahpe_tpu_torch.data import DeviceDataStore
     from dahpe_tpu_torch.experiments import perf_audit
 
@@ -3113,7 +3129,8 @@ def phase_perf_audit(torch, kernels, smi):
                                      verbose=False)
         torch.cuda.synchronize()
         counts = kernels.read()
-        calls = 5 + AUDIT_REPEATS * AUDIT_ITERS  # timed_ms's warm-up, then its loops
+        # timed_ms's warm-up calls and its capture; the graph's replays run no wrapper
+        calls = 5 + 1
         want = dict(NO_LAUNCHES, rotate3_fused=7 * calls, render_gaussian=2 * calls)
         if counts != want:
             raise AssertionError(f"11b {name}: launches {counts}, expected {want}")
@@ -3126,8 +3143,8 @@ def phase_perf_audit(torch, kernels, smi):
             launches[k] += v
     line("phase 11b perf_audit producer stages, batch 32, 288² store → 256², 64² targets", {
         "card": smi, "seconds": time.perf_counter() - t0, "runs": runs,
-        "timing": f"CUDA events, median of {AUDIT_REPEATS} loops of {AUDIT_ITERS} calls "
-                  "after 5 warm-up calls"})
+        "timing": f"CUDA events, median of {AUDIT_REPEATS} loops of {AUDIT_ITERS} replays "
+                  "of one captured call, after 5 warm-up calls"})
     return launches
 
 
@@ -3209,6 +3226,386 @@ def phase_regda(torch, models, smi):
         "rtol": 2e-3, "atol": "max(2e-4, 1e-4·std)"})
 
 
+# ------------------------------------------------------------------ phase 12
+RANKS_WORLD = 2  # phase 12: ranks of the experiment, sharing the card over gloo
+RANKS_PARITY_ITERS = 2  # 12a: pretrain, control and DA iterations each
+RANKS_TIMED_ITERS = 50  # 12b
+RANKS_WARM, RANKS_SYNCED = 10, 10  # 12b: DA calls before the clock; the last, synchronized
+RANKS_PCK_TOL = 0.01  # 12a: each PCK of the ranks' result against one process
+PCK_KEYS = ("source_val", "pretrain", "source_only", "da", "da_ema")
+DA_LOSSES = ("loss_s", "loss_gf", "loss_gt")
+
+
+def frame_memo(torch, path: str | None = None):
+    """Make ``SyntheticHands.fetch_raw`` of this process render each frame
+    once (the experiment renders its 1,280 frames anew in every run, ~35 s
+    of host time): from ``path`` where an earlier process saved the memo,
+    else rendered and kept. Returns ``(frames, undo)``; ``frames`` is the
+    memo, for ``torch.save``."""
+    from dahpe_tpu_torch.data.synthetic import SyntheticHands
+
+    frames = torch.load(path, weights_only=False) if path else {}
+    saved = SyntheticHands.__dict__.get("fetch_raw")
+    real = SyntheticHands.fetch_raw
+
+    def fetch_raw(self, index, rng, raw_size=288):
+        key = (self.domain, self.seed, self.shift, self.content, self.style,
+               self.samples[index], raw_size)
+        if key not in frames:
+            frames[key] = real(self, index, rng, raw_size)
+        return frames[key]
+
+    def undo():
+        if saved is None:
+            del SyntheticHands.fetch_raw
+        else:
+            SyntheticHands.fetch_raw = saved
+
+    SyntheticHands.fetch_raw = fetch_raw
+    return frames, undo
+
+
+def global_draws(torch, world: int):
+    """Make every ``DeviceDataStore`` of this process draw the global batch
+    of a ``world``-rank job and keep its own rows, as 10b's
+    :func:`parallel_draws`: ``batch / world`` row indices from each of the
+    ``world`` equal parts of the store's rows (JAX's shard assignment),
+    then the whole batch's augmentation draws, all from the one generator,
+    which no rank folds its rank into. A store of every row keeps the whole
+    batch, rank r's shard the rows of part r: one process and the ranks see
+    the same global batches. Returns the undo."""
+    from dahpe_tpu_torch.data.device_aug import draw_augment_params
+    from dahpe_tpu_torch.data.device_store import DeviceDataStore
+
+    def traced_batch_fn(self, batch_size, *, image_size=256, heatmap_size=64, rotation=180.0,
+                        scale_range=(0.6, 1.3), sigma=2.0):
+        rows, part = batch_size // world, self.n * self.world // world
+        mine = slice(self.rank * batch_size // self.world,
+                     (self.rank + 1) * batch_size // self.world)
+        cfg = dict(image_size=image_size, heatmap_size=heatmap_size, sigma=sigma)
+
+        def produce(generator):
+            idx = torch.cat([torch.randperm(part, generator=generator, device=self.device)[:rows]
+                             + part * r for r in range(world)])
+            params = draw_augment_params(generator, batch_size, size=self.raw_size,
+                                         rotation=rotation, scale_range=tuple(scale_range))
+            return self.train_batch_from(idx[mine] - self.n * self.rank,
+                                         {k: v[mine] for k, v in params.items()}, **cfg)
+
+        return produce
+
+    saved = DeviceDataStore.traced_batch_fn, DeviceDataStore._seed
+    DeviceDataStore.traced_batch_fn = traced_batch_fn
+    DeviceDataStore._seed = lambda self, seed: int(seed)
+
+    def undo():
+        DeviceDataStore.traced_batch_fn, DeviceDataStore._seed = saved
+    return undo
+
+
+def float64_models(torch):
+    """Make the experiment's models compute in float64: built (and drawn)
+    in float32 as ever, then converted. Returns the undo."""
+    from dahpe_tpu_torch import models
+
+    saved = models.PoseResNet, models.MultiHeadPoseResNet
+
+    def converted(cls):
+        return lambda *a, **kw: cls(*a, **kw).to(torch.float64)
+
+    models.PoseResNet, models.MultiHeadPoseResNet = (converted(c) for c in saved)
+
+    def undo():
+        models.PoseResNet, models.MultiHeadPoseResNet = saved
+    return undo
+
+
+def record(torch, seen: dict, timed: bool):
+    """Watch the experiment's fused iterations and evaluations. Untimed:
+    every iteration's losses (``pretrain``: pretrain and control; ``da``)
+    and the state dicts of the last two models evaluated (the DA model and
+    its EMA twin), on the host. Timed (12b): ms per DA iteration over the
+    calls after the first ``RANKS_WARM`` up to the last ``RANKS_SYNCED``,
+    between two synchronizes; then each of those last calls between
+    synchronizes, with every all-reduce and all-gather timed alone the same
+    way. Returns the undo."""
+    import torch.distributed as dist
+
+    from dahpe_tpu_torch import train
+    from dahpe_tpu_torch.experiments import adaptation
+
+    seen.update(pretrain=[], da=[], evaluated=[])
+    clock = {"calls": 0, "collective_s": 0.0, "collective_calls": 0, "synced_s": 0.0}
+    saved = train.make_fused_pretrain_iteration, train.make_fused_da_iteration
+    real_eval = adaptation._eval_target
+    collectives = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def synced(fn, counter):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            clock[counter + "_s"] += time.perf_counter() - t
+            if counter == "collective":
+                clock["collective_calls"] += 1
+            return out
+        return call
+
+    def pretrain(*a, **kw):
+        call = saved[0](*a, **kw)
+
+        def run(*args):
+            out = call(*args)
+            if not timed:
+                seen["pretrain"].append(float(out[1]["loss_s"]))
+            return out
+        return run
+
+    def da(*a, **kw):
+        call = saved[1](*a, **kw)
+        last = synced(call, "synced")
+
+        def run(*args):
+            i = clock["calls"]
+            clock["calls"] += 1
+            if not timed:
+                out = call(*args)
+                seen["da"].append({k: float(out[1][k]) for k in DA_LOSSES})
+                return out
+            if i == RANKS_WARM:
+                torch.cuda.synchronize()
+                clock["t0"] = time.perf_counter()
+            if i < RANKS_TIMED_ITERS - RANKS_SYNCED:
+                return call(*args)
+            if i == RANKS_TIMED_ITERS - RANKS_SYNCED:
+                torch.cuda.synchronize()
+                seen["ms_per_da_iter"] = ((time.perf_counter() - clock["t0"]) * 1e3
+                                          / (i - RANKS_WARM))
+                for name, fn in collectives.items():
+                    setattr(dist, name, synced(fn, "collective"))
+            out = last(*args)
+            if i == RANKS_TIMED_ITERS - 1:
+                restore_collectives()
+                seen.update(synchronized_da_iter_ms=clock["synced_s"] * 1e3 / RANKS_SYNCED,
+                            collective_calls_per_iter=clock["collective_calls"] / RANKS_SYNCED,
+                            collective_ms_per_iter=clock["collective_s"] * 1e3 / RANKS_SYNCED,
+                            collective_share=clock["collective_s"] / clock["synced_s"])
+            return out
+        return run
+
+    def evaluated(model, *a, **kw):
+        if not timed:
+            seen["evaluated"] = seen["evaluated"][-1:] + [
+                {k: v.detach().cpu() for k, v in model.state_dict().items()}]
+        return real_eval(model, *a, **kw)
+
+    def restore_collectives():
+        for name, fn in collectives.items():
+            setattr(dist, name, fn)
+
+    train.make_fused_pretrain_iteration, train.make_fused_da_iteration = pretrain, da
+    adaptation._eval_target = evaluated
+
+    def undo():
+        train.make_fused_pretrain_iteration, train.make_fused_da_iteration = saved
+        adaptation._eval_target = real_eval
+        restore_collectives()
+    return undo
+
+
+def experiment_run(torch, iters: int, *, draws: int | None = None, timed: bool = False,
+                   float64: bool = False, deterministic: bool = False) -> dict:
+    """The adaptation experiment at the acceptance configuration, ``iters``
+    + ``iters`` + ``iters`` iterations, as this process's rank (or alone):
+    on the global draws of a ``draws``-rank job, in float64, with cuDNN
+    deterministic, as asked. Returns its result, the path kernels' launches
+    in the run, its seconds and what :func:`record` saw."""
+    from dahpe_tpu_torch import parallel
+    from dahpe_tpu_torch.experiments import adaptation
+    from dahpe_tpu_torch.ops import gaussian, pseudo_label, shear
+
+    kernels = Kernels(gaussian, pseudo_label, shear)
+    seen = {}
+    undo = [record(torch, seen, timed)]
+    if draws:
+        undo.append(global_draws(torch, draws))
+    if float64:
+        undo.append(float64_models(torch))
+    default = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    before = kernels.read()
+    t0 = time.perf_counter()
+    try:
+        result = adaptation.run_adaptation_experiment(
+            pre_iters=iters, da_iters=iters, n_devices=parallel.world_size(),
+            device=CLI_DEVICE, **ACCEPTANCE)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = default
+        for fn in reversed(undo):
+            fn()
+    return {"result": result, "seconds": time.perf_counter() - t0,
+            "launches": {k: v - before[k] for k, v in kernels.read().items()}, **seen}
+
+
+def experiment_launches(iters: int) -> dict:
+    """The path kernels' launches of one experiment run of ``iters`` +
+    ``iters`` + ``iters`` iterations: a pretrain or control step 1 / 0 / 1
+    (render_gaussian / pseudo_labels / rotate3_fused), a DA iteration 7 / 3
+    / 2, an eval batch 1 / 0 / 0, over five evaluations of the whole
+    validation split (pretrain on source and target, control, the DA
+    curve's one point, the EMA twin)."""
+    evals = 5 * -(-ACCEPTANCE["n_val"] // ACCEPTANCE["batch"])
+    return dict(NO_LAUNCHES, render_gaussian=2 * iters + 7 * iters + evals,
+                pseudo_labels=3 * iters, rotate3_fused=4 * iters)
+
+
+def adaptation_rank(frames: str) -> dict:
+    """Phase 12, one rank (spawned by ``parallel.run_ranks``): 12a's run on
+    the global draws, cuDNN deterministic, whose evaluated states must be
+    equal on every rank; then 12b's timed run. Rank 0 returns every rank's
+    outputs and its evaluated states."""
+    import torch
+    import torch.distributed as dist
+
+    from dahpe_tpu_torch import parallel
+
+    undo = frame_memo(torch, frames)[1]
+    try:
+        parity = experiment_run(torch, RANKS_PARITY_ITERS, draws=parallel.world_size(),
+                                deterministic=True)
+        states = parity.pop("evaluated")
+        parity["replicated_tensors"] = parallel.assert_replicated(
+            [v for state in states for v in state.values()])
+        timed = experiment_run(torch, RANKS_TIMED_ITERS, timed=True)
+    finally:
+        undo()
+    everyone = [None] * parallel.world_size()
+    dist.all_gather_object(everyone, {"parity": parity, "timed": timed})
+    return {"ranks": everyone, "evaluated": states}
+
+
+def state_gap(torch, got: list, base: list) -> dict:
+    """The worst |Δ| of the DA and EMA states ``got`` against ``base``,
+    parameters and BN statistics apart, and where; integer buffers must be
+    equal."""
+    worst, at = {"parameters": 0.0, "bn_statistics": 0.0}, {}
+    for name, g, b in (("da", got[0], base[0]), ("ema", got[1], base[1])):
+        for k, v in b.items():
+            if not v.is_floating_point():
+                if not torch.equal(g[k], v):
+                    raise AssertionError(f"12a: {name} {k} {g[k]} vs {v}")
+                continue
+            kind = "bn_statistics" if k.endswith(("running_mean", "running_var")) else "parameters"
+            diff = float((g[k].double() - v.double()).abs().max())
+            if diff > worst[kind]:
+                worst[kind], at[kind] = diff, (f"{name} {k}", float(v.abs().max()))
+    return {"worst_abs": worst, "at_tensor_and_its_largest_abs": at}
+
+
+def phase_adaptation_ranks(torch, smi, root, world: int = RANKS_WORLD, backend: str = "gloo"):
+    """Phase 12: the adaptation experiment over ``world`` ranks sharing the
+    card over gloo (with ``--cards``, one rank a card over NCCL), spawned
+    by ``parallel.run_ranks``, at the acceptance configuration. (a) 2 + 2 +
+    2 iterations on the global draws of the ranks against one process on
+    the same draws, cuDNN deterministic: losses within rel 1e-4, the DA
+    and EMA states within 10b's bounds (parameters ``DATA_PARALLEL_ATOL``,
+    BN statistics ``BN_FLOOR_FACTOR`` times this run's float64 floor: the
+    one process in float64 against float32), the five PCKs within
+    ``RANKS_PCK_TOL``, one result and equal states on every rank, and each
+    rank's launches those the iterations imply. (b) 50 + 50 + 50
+    iterations at W = ``world`` and at W = 1: ms per DA iteration, the
+    collectives' share, the launches per rank (reported, no bound: ranks
+    sharing one card give no scaling figure). The frames are rendered once
+    in this process (:func:`frame_memo`, over any memo already installed)
+    and saved in ``root`` for the ranks; ``root`` is deleted after."""
+    from dahpe_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    path = os.path.join(root, "frames.pt")
+    frames, undo = frame_memo(torch)
+    saved_backend = os.environ.get("DAHPE_DIST_BACKEND")
+    try:
+        want = experiment_run(torch, RANKS_PARITY_ITERS, draws=world, deterministic=True)
+        torch.save(frames, path)  # the ranks' frames
+        f64 = experiment_run(torch, RANKS_PARITY_ITERS, draws=world, deterministic=True,
+                             float64=True)
+        torch.cuda.empty_cache()
+        os.environ["DAHPE_DIST_BACKEND"] = backend
+        t_ranks = time.perf_counter()
+        ranks = parallel.run_ranks(adaptation_rank, world, device=CLI_DEVICE,
+                                   kwargs={"frames": path}, timeout=WORKER_TIMEOUT)
+        ranks_s = time.perf_counter() - t_ranks
+        alone = experiment_run(torch, RANKS_TIMED_ITERS, timed=True)
+    finally:
+        undo()
+        if saved_backend is None:
+            os.environ.pop("DAHPE_DIST_BACKEND", None)
+        else:
+            os.environ["DAHPE_DIST_BACKEND"] = saved_backend
+        shutil.rmtree(root, ignore_errors=True)
+
+    for run in (want, f64):
+        if run["launches"] != experiment_launches(RANKS_PARITY_ITERS):
+            raise AssertionError(f"12a: one process launched {run['launches']}, expected "
+                                 f"{experiment_launches(RANKS_PARITY_ITERS)}")
+    rounding = state_gap(torch, want["evaluated"], f64["evaluated"])
+    bounds = {"parameters": DATA_PARALLEL_ATOL,
+              "bn_statistics": BN_FLOOR_FACTOR * rounding["worst_abs"]["bn_statistics"]}
+    gap = state_gap(torch, ranks["evaluated"], want["evaluated"])
+    ranks_vs_f64 = state_gap(torch, ranks["evaluated"], f64["evaluated"])
+    if not all(gap["worst_abs"][kind] <= bound for kind, bound in bounds.items()):
+        raise AssertionError(f"12a: {world} ranks vs one process {gap} against {bounds}; "
+                             f"float64 floor {rounding}; ranks vs float64 {ranks_vs_f64}")
+    results = [r["parity"]["result"] for r in ranks["ranks"]]
+    for r, res in enumerate(ranks["ranks"]):
+        parity, timed = res["parity"], res["timed"]
+        if parity["result"] != results[0]:
+            raise AssertionError(f"12a: rank {r} result {parity['result']} vs {results[0]}")
+        losses = [(x, y) for x, y in zip(parity["pretrain"], want["pretrain"], strict=True)]
+        losses += [(x[k], y[k]) for x, y in zip(parity["da"], want["da"], strict=True)
+                   for k in DA_LOSSES]
+        rel = max(abs(x - y) / abs(y) for x, y in losses)
+        if not rel <= 1e-4:
+            raise AssertionError(f"12a: rank {r} losses {parity['pretrain']} {parity['da']} vs "
+                                 f"one process {want['pretrain']} {want['da']}")
+        for run, iters in ((parity, RANKS_PARITY_ITERS), (timed, RANKS_TIMED_ITERS)):
+            if run["launches"] != experiment_launches(iters):
+                raise AssertionError(f"12: rank {r} launched {run['launches']} in {iters}-"
+                                     f"iteration runs, expected {experiment_launches(iters)}")
+    pck = {k: abs(results[0][k] - want["result"][k]) for k in PCK_KEYS}
+    if not max(pck.values()) <= RANKS_PCK_TOL:
+        raise AssertionError(f"12a: PCKs {results[0]} vs one process {want['result']}")
+    where = ("sharing the card over gloo" if backend == "gloo"
+             else f"one a card over {backend}")
+    line(f"phase 12a adaptation experiment {world} ranks {where} vs one process, resnet18 "
+         f"128²/32², batch 32, {RANKS_PARITY_ITERS}+{RANKS_PARITY_ITERS}+{RANKS_PARITY_ITERS} "
+         "iterations", {
+             "card": smi, "cudnn_deterministic": True, "vs_one_process": gap,
+             "one_process_float32_vs_float64": rounding, "ranks_vs_float64": ranks_vs_f64,
+             "bounds": bounds,
+             "bn_gap_over_floor": gap["worst_abs"]["bn_statistics"]
+             / rounding["worst_abs"]["bn_statistics"],
+             "max_loss_rel": rel, "pck_abs_diff": pck, "pck_tolerance": RANKS_PCK_TOL,
+             "result_rank_0": results[0], "result_one_process": want["result"],
+             "replicated_tensors": ranks["ranks"][0]["parity"]["replicated_tensors"],
+             "launches_per_rank": [res["parity"]["launches"] for res in ranks["ranks"]],
+             "seconds_one_process": want["seconds"], "seconds_float64": f64["seconds"]})
+    keys = ("ms_per_da_iter", "synchronized_da_iter_ms", "collective_calls_per_iter",
+            "collective_ms_per_iter", "collective_share", "seconds", "launches")
+    line(f"phase 12b adaptation experiment {world} ranks {where} and 1 process, resnet18 "
+         f"128²/32², batch 32, {RANKS_TIMED_ITERS}+{RANKS_TIMED_ITERS}+{RANKS_TIMED_ITERS} "
+         "iterations", {
+             "card": smi, "seconds": time.perf_counter() - t0, "ranks_launch_s": ranks_s,
+             f"world_{world}": [{k: res["timed"][k] for k in keys} for res in ranks["ranks"]],
+             "world_1": {k: alone[k] for k in keys}})
+    return [res[run]["launches"] for res in ranks["ranks"] for run in ("parity", "timed")] + \
+        [run["launches"] for run in (want, f64, alone)]
+
+
 def main() -> int:
     import torch
 
@@ -3277,6 +3674,9 @@ def main() -> int:
     for name, count in phase_cli_chunked(torch, kernels, smi, cli_best).items():
         launches[name] += count
     torch.cuda.empty_cache()
+    # phases 8c, 9e and 12 run the experiment on the same domains: each
+    # frame is rendered once
+    undo_frames = frame_memo(torch)[1]
     kernels.reset()  # main path 7: the adaptation experiment
     phase_adaptation(torch, smi)
     for name, count in kernels.read().items():
@@ -3352,6 +3752,17 @@ def main() -> int:
     phase_regda(torch, models, smi)  # no path kernel: frames in, heatmaps out
     line("phase 11 host warp, producer stages, drill, RegDA",
          {"card": smi, "phase_11_s": time.perf_counter() - t11})
+    torch.cuda.empty_cache()
+
+    # phase 12: the adaptation experiment over two ranks; main path 17: the
+    # ranks count their own launches, the runs in this process theirs
+    t12 = time.perf_counter()
+    for counts in phase_adaptation_ranks(torch, smi, os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_ranks")):
+        for name, count in counts.items():
+            launches[name] += count
+    undo_frames()
+    line("phase 12 adaptation over ranks", {"card": smi, "phase_12_s": time.perf_counter() - t12})
 
     sources = {
         "render_gaussian": ("render_gaussian.cu", "dahpe_tpu/ops/pallas/gaussian.py:45"),
@@ -3386,7 +3797,8 @@ def main_cards() -> int:
     phases that need every card. ``cli.serve --mesh`` over every card
     against one card on a freshly exported float artifact (uint8 ingest,
     batch-polymorphic), then phase 10b with one rank a card over NCCL
-    against world 1. The kernels are built as in phase 1; the last line is
+    against world 1, then phase 12 with one rank a card over NCCL at the
+    experiment's rank count for every card. The kernels are built as in phase 1; the last line is
     the one of a full run."""
     import torch
 
@@ -3394,6 +3806,7 @@ def main_cards() -> int:
         print("chip_smoke --cards: needs at least two CUDA devices", file=sys.stderr)
         return 2
     from dahpe_tpu_torch import data, models, serving, train
+    from dahpe_tpu_torch.experiments.adaptation import rank_count
     from dahpe_tpu_torch.ops import _build
 
     smi = phase_device(torch, _build)
@@ -3413,6 +3826,10 @@ def main_cards() -> int:
     stores = [data.DeviceDataStore(SyntheticSplit(256, RAW, seed=seed), device=CLI_DEVICE,
                                    raw_size=RAW, verbose=False) for seed in (2, 3)]
     phase_parallel_two_ranks(torch, models, train, smi, stores, root, world, "nccl")
+    del stores
+    torch.cuda.empty_cache()
+    phase_adaptation_ranks(torch, smi, os.path.join(here, "build", "chip_smoke_ranks"),
+                           rank_count(ACCEPTANCE["batch"], None, world), "nccl")
     shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
 """Acceptance experiment: the 3-step DA minimax must BEAT source-only.
 
-Port of ``dahpe_tpu/experiments/adaptation.py`` for one device. The
-reference exists to produce an adaptation gain: target PCK of the
-adversarial loop (``train1.py:328-458``) over plain supervised source
-training (``train1.py:278-325``). Step-for-step parity cannot show that
-gain; this experiment does, on the asset-free controlled shift of
+Port of ``dahpe_tpu/experiments/adaptation.py``. The reference exists to
+produce an adaptation gain: target PCK of the adversarial loop
+(``train1.py:328-458``) over plain supervised source training
+(``train1.py:278-325``). Step-for-step parity cannot show that gain; this
+experiment does, on the asset-free controlled shift of
 :mod:`dahpe_tpu_torch.data.synthetic`:
 
 1. pretrain a PoseResNet on labeled SOURCE for ``pre_iters``;
@@ -21,17 +21,25 @@ stores, fused iterations (one step per call, as the JAX experiment runs),
 the real evaluation loop. The batches come from ``torch.Generator`` streams,
 so a seed's run is not the JAX package's run: compare distributions.
 
+Over W devices the experiment is one data-parallel job of W ranks, W by
+the JAX package's rule (:func:`rank_count`): the global batch splits
+into W equal rank batches drawn from sharded training stores, and every
+rank validates on the whole split. Where JAX runs one SPMD program, the
+port runs one process a rank (:mod:`dahpe_tpu_torch.parallel`).
+
     python -m dahpe_tpu_torch.experiments.adaptation --seed 0 --json out.json
 """
 
 from __future__ import annotations
 
 import copy
+import math
 import time
 
 import torch
+import torch.distributed as dist
 
-from dahpe_tpu_torch import resolve_device
+from dahpe_tpu_torch import parallel, resolve_device
 
 
 def _eval_target(model, loader, dataset, *, image_size, heatmap_size, eval_step):
@@ -56,6 +64,19 @@ def make_backbone(arch: str, dtype=None) -> torch.nn.Module:
     if arch == "micro":
         return models.ResNet(models.BasicBlock, [1, 1, 1, 1], dtype=dtype)
     return models.get_backbone(arch, dtype=dtype)
+
+
+def available_devices(device) -> int:
+    """The devices a run on ``device`` takes when ``n_devices`` is None:
+    every card of this host for ``cuda``, one for the CPU."""
+    return torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
+
+
+def rank_count(batch: int, n_devices: int | None, available: int) -> int:
+    """The number of ranks of a run: the JAX package's ``gcd(batch,
+    n_devices or available)`` (``dahpe_tpu/experiments/adaptation.py:106``),
+    so the global batch splits into equal rank batches."""
+    return math.gcd(batch, n_devices or available)
 
 
 def warm_start(da_model: torch.nn.Module, pretrained: dict) -> None:
@@ -91,7 +112,7 @@ def run_adaptation_experiment(
     conf_gate: float | None = None,
     bf16: bool = False,
     eval_every: int = 100,
-    n_devices: int = 1,
+    n_devices: int | None = 1,
     verbose: bool = True,
     device=None,
 ) -> dict:
@@ -103,9 +124,34 @@ def run_adaptation_experiment(
     ``models.BACKBONES`` works. The acceptance configuration is the
     ``__main__`` defaults (resnet18 @ 128²/32). ``bf16`` builds every model
     computing in bfloat16 on float32 parameters, as the JAX package's
-    ``bf16``. ``device`` defaults to the card; one device runs it
-    (``n_devices`` other than 1 is refused: ROADMAP queue 1 item 11).
+    ``bf16``. ``device`` defaults to the card.
+
+    ``n_devices`` sets the ranks, W = :func:`rank_count` of ``batch`` and
+    ``n_devices`` (None: every card, or one CPU). W = 1 runs in this
+    process. Inside a process group (the ``DAHPE_*`` contract or
+    ``torchrun``, brought up by ``parallel.robust_distributed_initialize``)
+    this process runs as its rank, and W must be the group's size. Else W
+    above 1 spawns W ranks (``parallel.run_ranks``; ranks sharing a card
+    need ``DAHPE_DIST_BACKEND=gloo``) and returns rank 0's result, which
+    every rank must hold; its ``da_seconds`` is rank 0's.
     """
+    settings = dict(locals())
+    device = resolve_device(device)
+    if dist.is_initialized():
+        world = parallel.world_size()
+        n_dev = rank_count(batch, n_devices, world)
+        if n_dev != world:
+            raise ValueError(f"n_devices={n_devices} at batch {batch} gives {n_dev} ranks, but "
+                             f"the process group has {world}")
+        device = parallel.robust_distributed_initialize(device, verbose=False)
+    else:
+        n_dev = rank_count(batch, n_devices, available_devices(device))
+        if n_dev > 1:
+            return parallel.run_ranks(run_adaptation_experiment, n_dev, device=device,
+                                      kwargs={**settings, "n_devices": n_dev})
+    rank = parallel.rank()
+    verbose = verbose and rank == 0  # rank 0 alone logs
+
     from dahpe_tpu_torch import models
     from dahpe_tpu_torch.data.device_store import DeviceDataStore
     from dahpe_tpu_torch.data.synthetic import SyntheticHands
@@ -117,19 +163,14 @@ def run_adaptation_experiment(
         make_fused_pretrain_iteration,
     )
 
-    if n_devices not in (None, 1):
-        raise ValueError(f"n_devices={n_devices}: the experiment runs one device; "
-                         "cli.train --multihost is the data-parallel trainer (the "
-                         "experiment over several devices is ROADMAP.md item 11's remainder)")
-    device = resolve_device(device)
     t_start = time.time()
 
     def log(msg):
         if verbose:
             print(msg, flush=True)
 
-    log(f"adaptation experiment: {device}, arch={arch}, {pre_iters}+{da_iters} iters, "
-        f"batch {batch}")
+    log(f"adaptation experiment: {device}, {n_dev} rank(s), arch={arch}, "
+        f"{pre_iters}+{da_iters} iters, batch {batch}")
 
     mk = dict(n=n_train, seed=seed, image_size=(image_size,) * 2,
               heatmap_size=(heatmap_size,) * 2)
@@ -142,8 +183,9 @@ def run_adaptation_experiment(
                              content=content, style=style, **mkv)
 
     store = dict(device=device, verbose=False)
-    src_store = DeviceDataStore(src_train, raw_size=raw_size, **store)
-    tgt_store = DeviceDataStore(tgt_train, raw_size=raw_size, **store)
+    # each rank's shard of the training rows; validation stays whole
+    src_store = DeviceDataStore(src_train, raw_size=raw_size, shard=(rank, n_dev), **store)
+    tgt_store = DeviceDataStore(tgt_train, raw_size=raw_size, shard=(rank, n_dev), **store)
     val_loader = DeviceDataStore(tgt_val, raw_size=image_size, **store).eval_loader(
         batch, heatmap_size=heatmap_size)
     sval_loader = DeviceDataStore(src_val, raw_size=image_size, **store).eval_loader(
@@ -159,7 +201,10 @@ def run_adaptation_experiment(
     torch.manual_seed(seed)
     pre_model = models.PoseResNet(make_backbone(arch, dtype), num_keypoints=21, dtype=dtype)
     pre_state = create_pretrain_state(pre_model, device=device)
-    pre_fused = make_fused_pretrain_iteration(pre_model, src_store, batch, **aug)
+    if n_dev > 1:  # every rank drew the same initial weights
+        parallel.assert_replicated(pre_state)
+    pre_fused = make_fused_pretrain_iteration(pre_model, src_store, batch, **aug,
+                                              **parallel.data_parallel(pre_model))
     gen = src_store.generator(seed + 100)
     t0 = time.time()
     for i in range(pre_iters):
@@ -176,8 +221,11 @@ def run_adaptation_experiment(
         f"{pck_src:.3f}, target PCK {pck_pretrain:.3f}")
 
     # ---- control: source-only for the SAME extra budget ----------------
+    # (a cross-rank batch norm holds the default group as None: nothing of
+    # the process group is copied)
     ctl_state = copy.deepcopy(pre_state)
-    ctl_fused = make_fused_pretrain_iteration(ctl_state.model, src_store, batch, **aug)
+    ctl_fused = make_fused_pretrain_iteration(ctl_state.model, src_store, batch, **aug,
+                                              **parallel.data_parallel(ctl_state.model))
     for i in range(da_iters):
         ctl_state, m, gen = ctl_fused(ctl_state, gen, pretrain_lr)
     pck_source_only = _eval_target(
@@ -192,9 +240,12 @@ def run_adaptation_experiment(
                                           dtype=dtype)
     warm_start(da_model, pre_vars)
     da_state = create_da_state(da_model, device=device, with_ema=with_ema)
+    if n_dev > 1:  # every rank warm-started from the same snapshot
+        parallel.assert_replicated(da_state)
     da_fused = make_fused_da_iteration(
         da_model, src_store, tgt_store, batch, base_lr=da_lr,
         ema_decay=ema_decay if with_ema else None, conf_gate=conf_gate, **aug,
+        **parallel.data_parallel(da_model),
     )
     ks, kt = src_store.generator(seed + 200), tgt_store.generator(seed + 300)
     eval_da = make_eval_step(da_model, device=device)
@@ -226,6 +277,14 @@ def run_adaptation_experiment(
         result["da_ema"] = float(_eval_target(
             ema_model, val_loader, tgt_val, eval_step=make_eval_step(ema_model, device=device),
             **evals))
+    if n_dev > 1:  # rank 0's clock, then every rank must hold one result
+        seconds = [result["da_seconds"]]
+        dist.broadcast_object_list(seconds)
+        result["da_seconds"] = seconds[0]
+        results = [None] * n_dev
+        dist.all_gather_object(results, result)
+        if any(r != result for r in results):
+            raise AssertionError(f"rank {rank}: the ranks' results differ: {results}")
     log(f"RESULT source_only={result['source_only']:.3f} "
         f"da={result['da']:.3f} gain={result['gain']:+.3f}"
         + (f" ema={result['da_ema']:.3f}" if with_ema else "")

@@ -5,8 +5,11 @@ Port of ``dahpe_tpu/experiments/perf_audit.py``. The producer of the
 draw and gather, the rotation kernel, the crop-resize products, colour
 jitter, blur, normalize, the Gaussian-target kernel) runs twice an
 iteration, once per domain. Each PREFIX of it (stage 1, stages 1-2, ...) is
-timed on the card with CUDA events: warm-up calls, then the median of
-``repeats`` timed loops of ``iters`` calls. The marginal cost of stage k is
+timed on the card: warm-up calls, one call captured as a CUDA graph, then
+the median of ``repeats`` loops of ``iters`` replays timed with CUDA events.
+The replays make the time the device's, as the JAX audit's jitted calls do:
+eager calls would time the host's launch rate, since the producer's kernels
+are small. The marginal cost of stage k is
 ``prefix(k) - prefix(k-1)``, measured with the stages before it, as the
 iteration runs them. Every prefix draws its rows and augmentation from the
 generator, as the producer does.
@@ -87,9 +90,19 @@ def drawn(fn, store, batch: int, *, rotation: float = 180.0, scale_range=(0.6, 1
 
 
 def timed_ms(call, generator, *, iters: int = 30, repeats: int = 9, warmup: int = 5) -> float:
-    """Median over ``repeats`` loops of ``iters`` calls of the device time a
-    call, from CUDA events around each loop, after ``warmup`` calls."""
-    for _ in range(warmup):
+    """Median over ``repeats`` loops of ``iters`` graph replays of the
+    device time a call, from CUDA events around each loop: ``warmup`` eager
+    calls on a side stream, then one call captured as a CUDA graph with
+    ``generator`` registered, so every replay draws anew."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            call(generator)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
         call(generator)
     times = []
     for _ in range(repeats):
@@ -97,7 +110,7 @@ def timed_ms(call, generator, *, iters: int = 30, repeats: int = 9, warmup: int 
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            call(generator)
+            graph.replay()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
@@ -130,11 +143,10 @@ def run_audit(store, *, batch: int = 32, image_size: int = 256, heatmap_size: in
     card), and the whole producer's ms (``DeviceDataStore.traced_batch_fn``,
     its images cast to ``dtype`` when given) timed the same way."""
     cfg = dict(image_size=image_size, heatmap_size=heatmap_size)
-    gen = store.generator(seed)
     prefix, marginal, prev = {}, {}, 0.0
     for name in STAGES:
-        ms = timed_ms(drawn(make_prefix(name, store, dtype=dtype, **cfg), store, batch), gen,
-                      iters=iters, repeats=repeats)
+        ms = timed_ms(drawn(make_prefix(name, store, dtype=dtype, **cfg), store, batch),
+                      store.generator(seed), iters=iters, repeats=repeats)
         prefix[name], marginal[name], prev = ms, ms - prev, ms
         if verbose:
             print(f"{name:10s} prefix {ms:8.3f} ms   marginal {marginal[name]:+8.3f} ms",
@@ -145,7 +157,7 @@ def run_audit(store, *, batch: int = 32, image_size: int = 256, heatmap_size: in
         batch_out = whole(generator)
         return batch_out["image"].to(dtype) if dtype is not None else batch_out["image"]
 
-    whole_ms = timed_ms(producer, gen, iters=iters, repeats=repeats)
+    whole_ms = timed_ms(producer, store.generator(seed), iters=iters, repeats=repeats)
     if verbose:
         print(f"full producer ({batch} images): {whole_ms:.3f} ms -> x2 domains = "
               f"{2 * whole_ms:.3f} ms an iteration", flush=True)

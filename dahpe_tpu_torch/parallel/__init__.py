@@ -1,6 +1,7 @@
 """Data parallelism over ``torch.distributed`` ranks (port of
-``dahpe_tpu/parallel/``): process-group bring-up and the data-parallel
-train and eval steps."""
+``dahpe_tpu/parallel/``): process-group bring-up, the launcher of a
+job's ranks from one process, and the data-parallel train and eval
+steps."""
 
 from dahpe_tpu_torch.parallel.distributed import (
     barrier,
@@ -10,6 +11,7 @@ from dahpe_tpu_torch.parallel.distributed import (
     shutdown,
     world_size,
 )
+from dahpe_tpu_torch.parallel.launch import run_ranks
 from dahpe_tpu_torch.parallel.mesh import (
     Collectives,
     assert_replicated,
@@ -37,5 +39,6 @@ __all__ = [
     "make_parallel_eval_step",
     "make_parallel_pretrain_step",
     "replicate",
+    "run_ranks",
     "shard_batch",
 ]

@@ -7,8 +7,8 @@
   DA model's warm start from the pretrain weights (the key-filtered
   ``filtered_update``) equals JAX's leaf for leaf, and ``_eval_target``
   gives JAX's PCK on a device-resident target split.
-- More than one device is refused, naming its ROADMAP item (``bf16``
-  runs: ``tests/test_torch_port_bf16.py``).
+- ``bf16`` runs: ``tests/test_torch_port_bf16.py``; over several ranks:
+  ``tests/test_torch_port_adaptation_ranks.py``.
 
 The acceptance run itself (resnet18 at 128², 4000+3000 iterations, seeds
 0-2) runs on the card: see README.md and PERF.md.
@@ -71,13 +71,6 @@ def test_micro_run_returns_every_key():
     assert r["gain"] == pytest.approx(r["da"] - r["source_only"])
     assert [i for i, _ in r["curve"]] == [1, 2] and r["curve"][-1][1] == r["da"]
     assert r["da_seconds"] > 0
-
-
-def test_unported_options_are_refused():
-    """More than one device is refused, naming its ROADMAP item; ``bf16``
-    runs (``tests/test_torch_port_bf16.py``)."""
-    with pytest.raises(ValueError, match="item 11"):
-        adaptation.run_adaptation_experiment(n_devices=2, device="cpu")
 
 
 def test_warm_start_matches_jax():
