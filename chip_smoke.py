@@ -70,7 +70,9 @@ line, fail the run by raising:
    iteration, each from one snapshot run as 4 eager single calls and as one
    graphed 4-step call (cuDNN deterministic for the check): the generators
    ``torch.equal`` and every weight, BN statistic, momentum and EMA entry
-   within the DA parity tolerance (rtol 5e-3), the three path kernels
+   within the DA parity tolerance (rtol 5e-3), also after the chunk is
+   captured again with the tracer on and then off (one capture each, into
+   the pool the earlier graph holds), the three path kernels
    counted per replay by the profiler against one eager iteration, and
    ms/iter at K = 1, 4 and 8, idle shares and peak memory; (b) the training
    CLI at phase 6's configuration with ``--steps-per-call 4``:
@@ -1933,12 +1935,47 @@ def timed_calls(torch, call, calls: int, per_call: int, images: int) -> dict:
             "host_ms_per_iter": host, "img_per_s": images * 1e3 / host}
 
 
+def recapture_check(torch, chunked, state, gens, snap, want, captures: int = 1) -> list[dict]:
+    """A graphed chunk captured a second and a third time: the tracer
+    turned on, then off (each toggle makes the next call capture again,
+    into the pool the earlier graph holds, and the graph then holds the
+    phase markers, then not), each call's ``captures`` and its replays from
+    ``snap`` against ``want``, the eager calls' snapshot."""
+    from dahpe_tpu_torch.utils import profiling
+
+    out = []
+    try:
+        for on in (True, False):
+            profiling.enable(on)
+            before = profiling.counters().get("captures", 0)
+            put(torch, state, gens, snap)
+            chunked()  # a new capture, then the replays
+            got = take(state, gens)
+            made = profiling.counters().get("captures", 0) - before
+            if made != captures or got[1] != want[1] or not all(
+                    torch.equal(a, b) for a, b in zip(got[2], want[2])):
+                raise AssertionError(f"graphs: the recapture with the tracer {'on' if on else 'off'}"
+                                     f" made {made} captures (expected {captures}), or its "
+                                     "step or generators differ from the eager calls'")
+            agreement = state_agreement(torch, got[0], want[0])
+            if not agreement["worst_share_of_tolerance"] < 1.0:
+                raise AssertionError(f"graphs: state replayed after a recapture with the tracer "
+                                     f"{'on' if on else 'off'} outside the DA parity tolerance: "
+                                     f"{agreement}")
+            out.append({"tracer": on, "captures": made, **agreement})
+    finally:
+        profiling.enable(False)
+        profiling.take_spans()
+    return out
+
+
 def graph_check(torch, make_call, state, gens, images: int) -> dict:
     """Phase 8a for one kind of iteration. ``make_call(k)`` wraps a fresh
     ``steps_per_call=k`` iteration into a no-argument call on ``state`` and
     ``gens``. With cuDNN deterministic, from one snapshot: ``GRAPH_K`` eager
     single calls twice (the noise floor) and the graphed chunk (its first
-    call, the eager warm-up, put back first). Then, at cuDNN's defaults, as
+    call, the eager warm-up, put back first), then the chunk captured again
+    twice (:func:`recapture_check`). Then, at cuDNN's defaults, as
     phase 5 runs: kernels per replay by name, times at K = 1, ``GRAPH_K``
     and 8, idle shares and peak memory."""
     torch.cuda.reset_peak_memory_stats()
@@ -1964,6 +2001,7 @@ def graph_check(torch, make_call, state, gens, images: int) -> dict:
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         graphed = take(state, gens)
+        recaptured = recapture_check(torch, chunked, state, gens, snap, eager[0])
     finally:
         torch.backends.cudnn.deterministic = deterministic
     if graphed[1] != eager[0][1] or not all(torch.equal(a, b)
@@ -1993,7 +2031,7 @@ def graph_check(torch, make_call, state, gens, images: int) -> dict:
     chunk8()  # capture and replays
     times["k8_replayed"] = timed_calls(torch, chunk8, 2, 8, images)
     return {"replay_vs_eager": {"generators_equal": True, "steps_equal": True, **agreement},
-            "eager_vs_eager": floor, "cudnn_deterministic_for_the_check": True,
+            "recaptures_vs_eager": recaptured, "eager_vs_eager": floor, "cudnn_deterministic_for_the_check": True,
             "capture_and_replay_s": capture_s, "kernels_per_eager_iteration": per_eager,
             "kernels_per_replay": per_replay, "times": times,
             "idle_share": {"k1_eager": eager_profile["idle_share"],

@@ -9,7 +9,11 @@ exported artifact (``cli.export``; float or ``--int8``) with its sibling
 Protocol (the JAX package's; :mod:`dahpe_tpu_torch.client` speaks it):
 
 - ``GET /healthz`` → JSON: artifact geometry (batch/frame shape/dtype), the
-  device, the ``requests``/``batches`` counts and the captured batches.
+  device, the captured batches and the counters: ``requests`` and
+  ``batches``; ``rows`` and ``dispatch_s``, the live rows and host seconds
+  of the device dispatches; ``queue_wait_s`` and ``queue_wait_max_s``, the
+  sum and the largest of the batched requests' waits from enqueue to the
+  start of their dispatch.
 - ``POST /predict`` with an ``.npy`` body (``numpy.save`` of a ``(B, H, W,
   3)`` frame array of the artifact's input dtype) → JSON ``{"coords": (B,
   K, 2) image px, "maxvals": (B, K)}``.
@@ -154,6 +158,10 @@ class _Servable:
         self._pools: dict[torch.device, tuple] = {}
         self.requests = 0   # /predict calls answered 200
         self.batches = 0    # device dispatches — ≤ requests under batching
+        self.rows = 0       # live rows of those dispatches
+        self.dispatch_s = 0.0  # host seconds in run_arrays, lock wait included
+        self.queue_wait_s = 0.0  # batched requests: enqueue to dispatch start
+        self.queue_wait_max_s = 0.0
         if warmup and self.batch is not None:
             with self._lock:
                 self._execute(np.zeros((self.batch,) + self.frame_shape, self.dtype))
@@ -169,6 +177,10 @@ class _Servable:
             "graphs": sorted(self._graphs),
             "requests": self.requests,
             "batches": self.batches,
+            "rows": self.rows,
+            "dispatch_s": self.dispatch_s,
+            "queue_wait_s": self.queue_wait_s,
+            "queue_wait_max_s": self.queue_wait_max_s,
         }
 
     def validate(self, frames: np.ndarray) -> None:
@@ -236,6 +248,7 @@ class _Servable:
         are per-sample independent, so padding never changes live rows),
         predict, return the live rows as numpy ``(coords (n, K, 2), maxvals
         (n, K))``."""
+        t0 = time.perf_counter()
         n = frames.shape[0]
         target = _pad_target(n, self.batch, len(self.devices))
         if n < target:
@@ -247,11 +260,18 @@ class _Servable:
             except Exception as e:
                 raise DispatchError(f"{type(e).__name__}: {e}") from e
             self.batches += 1
+            self.rows += n
+            self.dispatch_s += time.perf_counter() - t0
         return coords[:n], maxvals[:n, :, 0]
 
     def count_request(self) -> None:
         with self._count_lock:
             self.requests += 1
+
+    def count_queue_waits(self, waits: list[float]) -> None:
+        with self._count_lock:
+            self.queue_wait_s += sum(waits)
+            self.queue_wait_max_s = max(self.queue_wait_max_s, *waits)
 
     def run(self, frames: np.ndarray) -> dict:
         self.validate(frames)
@@ -311,6 +331,8 @@ class _Batcher:
                     item = self._queue.pop(0)
                     take.append(item)
                     rows += item["frames"].shape[0]
+            now = time.monotonic()
+            self.servable.count_queue_waits([now - i["t"] for i in take])
             try:
                 coords, maxvals = self.servable.run_arrays(
                     np.concatenate([i["frames"] for i in take]))

@@ -537,7 +537,11 @@ def _run_phases(args, logger, saver, stop_signum):
     if args.profile:
         from dahpe_tpu_torch.utils import profiling
 
-        for _ in range(2):  # warm-up: cuDNN picks its algorithms
+        # the program's spans and phase markers on for the profiled calls:
+        # the warm-up captures the graph again with its markers (cuDNN picks
+        # its algorithms there too), and the graph after is captured without
+        profiling.enable(True)
+        for _ in range(2):
             state, metrics, _, _ = run_iteration(state)
         host_scalars(metrics, ("loss_s",))
         tracedir = os.path.join(args.log, "trace")
@@ -546,6 +550,7 @@ def _run_phases(args, logger, saver, stop_signum):
             for _ in range(args.profile):
                 state, metrics, _, _ = run_iteration(state)
             host_scalars(metrics, ("loss_s",))
+        profiling.enable(False)
         print(f"profiler trace ({args.profile} iters) -> {tracedir}: {summary}")
     global_step = state.step
     if args.max_steps and global_step >= args.max_steps:

@@ -18,6 +18,11 @@ from peaks decoded on the device (one decode per main-head heatmap), and the
 metrics stay device tensors. No ``.item()``, no copy to the host, no Python
 branch on a device value, so one iteration can be captured as a CUDA graph
 and replayed (``train/fused.py``).
+
+With the tracer on (``utils.profiling``), Steps A, B and C and the EMA
+update with the step's metrics are the phases ``step_a``, ``step_b``,
+``step_c`` and ``ema``: host spans that also mark the device's stream, and
+a closing marker ends the iteration.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from dahpe_tpu_torch.train.optim import (
     step_partitions,
     zero_grad,
 )
+from dahpe_tpu_torch.utils import profiling
 
 ALL = tuple(DA_PARTITIONS)
 ADV = ("h_adv", "h_adv2", "h_adv3")
@@ -209,98 +215,106 @@ def make_da_train_step(
 
     def run(state: DATrainState, batch_s: dict, batch_t: dict) -> dict:
         opts = state.optimizers
-        lam = warm_start_coeff(state.step_t, hi=gl_hi, max_iters=gl_max_iters)
-        lr = lr_table(state.step_t)
+        device = state.step_t.device
         x_s, label_s, w_s = batch_s["image"], batch_s["target"], batch_s["weight"]
         x_t, label_t, w_t = batch_t["image"], batch_t["target"], batch_t["weight"]
         model.train()
 
         # ---- Step A: source supervision + min-disparity, all partitions ----
-        zero_grad(opts, ALL)
-        out_s = model(x_s, lam)
-        y = out_s["y"]
-        peaks = peaks_from_heatmap(y.detach())
-        loss_s = (
-            2.0 * joints_kl_loss(y, label_s, w_s)
-            + 4.0 * disparity.rd_32(y, out_s["y_adv2"], None, w_s, "min", peaks=peaks)
-            + 4.0 * disparity.rd_64(y, out_s["y_adv"], None, w_s, "min", peaks=peaks)
-            + 4.0 * disparity.rd_16(y, out_s["y_adv3"], w_s, "min", peaks=peaks)
-        )
-        loss_s.backward()
-        step_partitions(opts, ALL, lr, **hyper)
+        with profiling.phase("step_a", device):
+            lam = warm_start_coeff(state.step_t, hi=gl_hi, max_iters=gl_max_iters)
+            lr = lr_table(state.step_t)
+            zero_grad(opts, ALL)
+            out_s = model(x_s, lam)
+            y = out_s["y"]
+            peaks = peaks_from_heatmap(y.detach())
+            loss_s = (
+                2.0 * joints_kl_loss(y, label_s, w_s)
+                + 4.0 * disparity.rd_32(y, out_s["y_adv2"], None, w_s, "min", peaks=peaks)
+                + 4.0 * disparity.rd_64(y, out_s["y_adv"], None, w_s, "min", peaks=peaks)
+                + 4.0 * disparity.rd_16(y, out_s["y_adv3"], w_s, "min", peaks=peaks)
+            )
+            loss_s.backward()
+            step_partitions(opts, ALL, lr, **hyper)
 
         # ---- Steps B + C over the target batch ----
         if share_target_features:
-            r0 = [t.clone() for t in _bn_stats(model, SHARED_MODULES)]
-            f_t = model.features(x_t)
-            f_sg = f_t.detach()
-            with torch.no_grad():
-                y_t = model.main_head(f_sg)
-            peaks_t = peaks_from_heatmap(y_t)
-            w_tg = gated_weight(y_t, w_t)
+            with profiling.phase("step_b", device):
+                r0 = [t.clone() for t in _bn_stats(model, SHARED_MODULES)]
+                f_t = model.features(x_t)
+                f_sg = f_t.detach()
+                with torch.no_grad():
+                    y_t = model.main_head(f_sg)
+                peaks_t = peaks_from_heatmap(y_t)
+                w_tg = gated_weight(y_t, w_t)
 
-            zero_grad(opts, ADV)
-            loss_gf = step_b_losses(y_t, peaks_t, model.adv_heads(f_sg, lam), w_tg)
-            loss_gf.backward()
-            step_partitions(opts, ADV, lr, **hyper)
+                zero_grad(opts, ADV)
+                loss_gf = step_b_losses(y_t, peaks_t, model.adv_heads(f_sg, lam), w_tg)
+                loss_gf.backward()
+                step_partitions(opts, ADV, lr, **hyper)
 
-            zero_grad(opts, ("f",))
-            leaf = f_t.detach().requires_grad_(True)
-            advs_t = model.adv_heads(leaf, lam)
-            loss_gt = step_c_losses(y_t, peaks_t, advs_t, w_tg)
-            (g_f,) = torch.autograd.grad(loss_gt, leaf)
-            f_t.backward(g_f)
-            step_partitions(opts, ("f",), lr, **hyper)
-            out_t = {"y": y_t, **advs_t}
+            with profiling.phase("step_c", device):
+                zero_grad(opts, ("f",))
+                leaf = f_t.detach().requires_grad_(True)
+                advs_t = model.adv_heads(leaf, lam)
+                loss_gt = step_c_losses(y_t, peaks_t, advs_t, w_tg)
+                (g_f,) = torch.autograd.grad(loss_gt, leaf)
+                f_t.backward(g_f)
+                step_partitions(opts, ("f",), lr, **hyper)
+                out_t = {"y": y_t, **advs_t}
 
-            # the shared modules ran once, but the reference's running stats
-            # advanced twice with identical batch statistics:
-            # r1 = (1-m)·r0 + m·s  ⇒  r2 = (2-m)·r1 - (1-m)·r0
-            with torch.no_grad():
-                r1 = _bn_stats(model, SHARED_MODULES)
-                torch._foreach_mul_(r1, 1.0 + keep)
-                torch._foreach_add_(r1, r0, alpha=-keep)
+                # the shared modules ran once, but the reference's running
+                # stats advanced twice with identical batch statistics:
+                # r1 = (1-m)·r0 + m·s  ⇒  r2 = (2-m)·r1 - (1-m)·r0
+                with torch.no_grad():
+                    r1 = _bn_stats(model, SHARED_MODULES)
+                    torch._foreach_mul_(r1, 1.0 + keep)
+                    torch._foreach_add_(r1, r0, alpha=-keep)
         else:
-            zero_grad(opts, ADV)
-            out_b = model(x_t, lam)
-            y_b = out_b["y"].detach()
-            loss_gf = step_b_losses(y_b, peaks_from_heatmap(y_b), out_b,
-                                    gated_weight(y_b, w_t))
-            loss_gf.backward(inputs=adv_params)
-            step_partitions(opts, ADV, lr, **hyper)
+            with profiling.phase("step_b", device):
+                zero_grad(opts, ADV)
+                out_b = model(x_t, lam)
+                y_b = out_b["y"].detach()
+                loss_gf = step_b_losses(y_b, peaks_from_heatmap(y_b), out_b,
+                                        gated_weight(y_b, w_t))
+                loss_gf.backward(inputs=adv_params)
+                step_partitions(opts, ADV, lr, **hyper)
 
-            zero_grad(opts, ("f",))
-            out_t = model(x_t, lam)
-            y_c = out_t["y"].detach()
-            loss_gt = step_c_losses(y_c, peaks_from_heatmap(y_c), out_t,
-                                    gated_weight(y_c, w_t))
-            loss_gt.backward(inputs=f_params)
-            step_partitions(opts, ("f",), lr, **hyper)
+            with profiling.phase("step_c", device):
+                zero_grad(opts, ("f",))
+                out_t = model(x_t, lam)
+                y_c = out_t["y"].detach()
+                loss_gt = step_c_losses(y_c, peaks_from_heatmap(y_c), out_t,
+                                        gated_weight(y_c, w_t))
+                loss_gt.backward(inputs=f_params)
+                step_partitions(opts, ("f",), lr, **hyper)
 
-        if ema_decay is not None and state.ema is not None:
-            ema_update(state.ema, ema_state(model), ema_decay)
+        with profiling.phase("ema", device):
+            if ema_decay is not None and state.ema is not None:
+                ema_update(state.ema, ema_state(model), ema_decay)
 
-        metrics = {
-            "loss_s": loss_s.detach(),
-            "loss_gf": loss_gf.detach(),
-            "loss_gt": loss_gt.detach(),
-            "lr": lr,
-            "gl_coeff": lam,
-        }
-        if collectives is not None:  # global-batch means, one all-reduce
-            names = ("loss_s", "loss_gf", "loss_gt")
-            metrics.update(zip(names, collectives.mean(
-                torch.stack([metrics[n] for n in names])).unbind()))
-        if compute_metrics:
-            with torch.no_grad():
-                kw = dict(gather=gather)
-                _, acc_s, _, pred_s = pck_accuracy(out_s["y"].detach(), label_s, **kw)
-                _, acc_t, _, pred_t = pck_accuracy(out_t["y"].detach(), label_t, **kw)
-                _, acc_s_adv, _, _ = pck_accuracy(out_s["y_adv"].detach(), label_s, **kw)
-                _, acc_t_adv, _, _ = pck_accuracy(out_t["y_adv"].detach(), label_t, **kw)
-            metrics.update(acc_s=acc_s, acc_t=acc_t, acc_s_adv=acc_s_adv,
-                           acc_t_adv=acc_t_adv, pred_s=pred_s, pred_t=pred_t)
-        state.step_t.add_(1)
+            metrics = {
+                "loss_s": loss_s.detach(),
+                "loss_gf": loss_gf.detach(),
+                "loss_gt": loss_gt.detach(),
+                "lr": lr,
+                "gl_coeff": lam,
+            }
+            if collectives is not None:  # global-batch means, one all-reduce
+                names = ("loss_s", "loss_gf", "loss_gt")
+                metrics.update(zip(names, collectives.mean(
+                    torch.stack([metrics[n] for n in names])).unbind()))
+            if compute_metrics:
+                with torch.no_grad():
+                    kw = dict(gather=gather)
+                    _, acc_s, _, pred_s = pck_accuracy(out_s["y"].detach(), label_s, **kw)
+                    _, acc_t, _, pred_t = pck_accuracy(out_t["y"].detach(), label_t, **kw)
+                    _, acc_s_adv, _, _ = pck_accuracy(out_s["y_adv"].detach(), label_s, **kw)
+                    _, acc_t_adv, _, _ = pck_accuracy(out_t["y_adv"].detach(), label_t, **kw)
+                metrics.update(acc_s=acc_s, acc_t=acc_t, acc_s_adv=acc_s_adv,
+                               acc_t_adv=acc_t_adv, pred_s=pred_s, pred_t=pred_t)
+            state.step_t.add_(1)
+        profiling.mark_end(device)
         return metrics
 
     def cover(state: DATrainState, k: int) -> bool:

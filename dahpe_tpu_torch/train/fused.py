@@ -23,6 +23,14 @@ stores) each rank runs its rows of the global batch and the captured
 iteration holds the gradient, batch-norm and metric collectives. NCCL's
 collectives are captured; gloo's cannot be, so a chunk above 1 on a card
 under gloo with more than one rank is refused before anything is built.
+
+With the tracer on (``utils.profiling``), a DA call records the host spans
+``fused.call``, ``fused.cover`` (the lr table's check), ``fused.capture``
+and one ``fused.replay`` a replay, and the iteration's phases (``producer``
+here, the steps in ``train/da.py``) mark the device's stream. A graph
+captured with the tracer off holds no markers, one captured with it on
+does: a call captures again when the tracer was turned on or off since.
+Every capture and replay is counted (``profiling.counters()``).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch.distributed as dist
 
 from dahpe_tpu_torch.train.da import make_da_train_step
 from dahpe_tpu_torch.train.pretrain import lr_tensor, make_pretrain_step
+from dahpe_tpu_torch.utils import profiling
 
 
 def _chunk_size(steps_per_call: int, device, collectives=None) -> int:
@@ -60,7 +69,8 @@ class _Chunk:
     in the pool a later replay rewrites.
     ``key`` names the objects the graph was captured on (the state, the
     generators): a call with others raises, since the graph would go on
-    updating the captured ones."""
+    updating the captured ones. ``traced`` says whether the tracer was on
+    at the capture (the graph then holds the phase markers)."""
 
     def __init__(self, k: int, device: torch.device):
         self.k, self.device = k, torch.device(device)
@@ -69,6 +79,7 @@ class _Chunk:
         self.sums: dict[str, torch.Tensor] = {}
         self.key: tuple | None = None
         self.stream: torch.cuda.Stream | None = None  # the warm-up's and the captures'
+        self.traced = False
 
     def eager(self, body: Callable[[], dict]) -> dict:
         """``K`` eager iterations; the metrics summed in the order a replayed
@@ -81,8 +92,7 @@ class _Chunk:
 
     def capture(self, body: Callable[[], dict], generators) -> None:
         """Record one iteration (and the metrics' accumulation) as a graph."""
-        if self.graph is not None:
-            self.graph.reset()
+        profiling.count("captures")
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
@@ -97,7 +107,12 @@ class _Chunk:
             names = list(self.sums)
             torch._foreach_add_([self.sums[n] for n in names], [m[n] for n in names])
         torch.cuda.current_stream(self.device).wait_stream(self.stream)
-        self.graph = graph
+        # the earlier graph is released only now: the gradients its capture
+        # made live on in the pool, and a capture may share a pool only while
+        # another graph holds it
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph, self.traced = graph, profiling.enabled()
 
     def __call__(self, body: Callable[[], dict], key: tuple, generators, stale: bool) -> dict:
         """One call: ``stale`` says a table the iteration reads has moved,
@@ -120,12 +135,15 @@ class _Chunk:
             if len(key) != len(self.key) or any(a is not b for a, b in zip(key, self.key)):
                 raise ValueError("a captured iteration runs on the state and generators it "
                                  "was first called with; make a new iteration for others")
-            if self.graph is None or stale:
-                self.capture(body, generators)
+            if self.graph is None or stale or self.traced != profiling.enabled():
+                with profiling.span("fused.capture"):
+                    self.capture(body, generators)
             sums = list(self.sums.values())
             torch._foreach_zero_(sums)
             for _ in range(self.k):
-                self.graph.replay()
+                with profiling.span("fused.replay"):
+                    self.graph.replay()
+            profiling.count("replays", self.k)
             return dict(zip(self.sums, torch._foreach_div(sums, float(self.k))))
 
 
@@ -149,16 +167,23 @@ def make_fused_da_iteration(model, source_store, target_store, batch_size: int, 
     step = make_da_train_step(model, **step_config)
     chunk = _Chunk(k, source_store.device)
 
+    def draw(s_gen: torch.Generator, t_gen: torch.Generator):
+        with profiling.phase("producer", source_store.device):
+            return src(s_gen), tgt(t_gen)
+
     def call(state, s_gen: torch.Generator, t_gen: torch.Generator):
-        if k == 1:
-            b_s, b_t = src(s_gen), tgt(t_gen)
-            state, metrics = step(state, b_s, b_t)
-            return state, metrics, b_s, b_t
-        stale = step.cover(state, k)
-        metrics = chunk(lambda: step.run(state, src(s_gen), tgt(t_gen)),
-                        (state, s_gen, t_gen), (s_gen, t_gen), stale)
-        state.advance(k)
-        return state, metrics, None, None
+        with profiling.span("fused.call", call=True):
+            with profiling.span("fused.cover"):
+                stale = step.cover(state, k)
+            if k == 1:
+                b_s, b_t = draw(s_gen, t_gen)
+                metrics = step.run(state, b_s, b_t)
+                state.advance(1)
+                return state, metrics, b_s, b_t
+            metrics = chunk(lambda: step.run(state, *draw(s_gen, t_gen)),
+                            (state, s_gen, t_gen), (s_gen, t_gen), stale)
+            state.advance(k)
+            return state, metrics, None, None
 
     return call
 

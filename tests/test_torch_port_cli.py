@@ -37,7 +37,7 @@ from dahpe_tpu_torch.cli import test as test_cli
 from dahpe_tpu_torch.cli import train as train_cli
 from dahpe_tpu_torch.cli.args import build_parser
 from dahpe_tpu_torch.utils import checkpoint as ckpt
-from dahpe_tpu_torch.utils import fast_ckpt
+from dahpe_tpu_torch.utils import fast_ckpt, profiling
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -168,6 +168,24 @@ def test_keep_checkpoints_and_conf_gate(roots, tmp_path):
     names = set(os.listdir(log / "checkpoints"))
     assert {"2", "best", "latest"} <= names and not names & {"0", "1", "0_aux.npz", "1_aux.npz"}
     assert all(np.isfinite(r[k]) for r in _metrics(log) for k in ("loss_s", "loss_gf", "loss_gt"))
+
+
+def test_profile_traces_the_program_spans(roots, tmp_path):
+    """``--profile 2`` turns the tracer on for its iterations: the profiled
+    calls' spans are a track of ``trace.json``, ``summary.json`` holds the
+    device ms of each phase and the calls' captures and replays, and the
+    tracer is off after them."""
+    log = tmp_path / "logs"
+    assert train_cli.cli_main(_argv(roots, log, "--device-store", "--pretrain-epochs", "0",
+                                    "--epochs", "1", "-i", "1", "--profile", "2")) == 0
+    summary = json.load(open(log / "trace" / "summary.json"))
+    assert set(summary["phase_ms"]) == set(profiling.PHASES)
+    assert summary["captures"] == summary["replays"] == 0  # one eager step a call
+    trace = json.load(open(log / "trace" / "trace.json"))
+    names = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "program_span"]
+    assert names.count("fused.call") == 2
+    assert [n for n in names if n in profiling.PHASES] == list(profiling.PHASES) * 2
+    assert not profiling.enabled() and profiling.take_spans() == []
 
 
 def test_sigterm_drains_and_exits_zero(roots, tmp_path):

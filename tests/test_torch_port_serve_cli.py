@@ -17,6 +17,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 from http.client import HTTPConnection
 
 import numpy as np
@@ -224,6 +225,38 @@ def test_dynamic_batching_coalesces(artifacts):
                                           _direct(artifact, solo)[0][:2])
         health = _get(port, "/healthz")[1]
         assert health["requests"] == 4 and health["batches"] == 1
+
+
+def test_healthz_counts_rows_dispatch_time_and_queue_waits(artifacts):
+    """``/healthz``'s ``rows`` and ``dispatch_s`` count the live rows and
+    host seconds of the dispatches; without batching no request waits in a
+    queue. Under ``--batch-window`` each of four coalesced requests waits
+    from its enqueue to the one dispatch: the sum and the largest wait are
+    counted."""
+    with running(artifacts["fixed8"]) as server:
+        port = server.server_address[1]
+        for n in (3, 2):
+            assert _post_npy(port, "/predict", _frames(n, seed=n))[0] == 200
+        health = _get(port, "/healthz")[1]
+        assert health["batches"] == 2 and health["rows"] == 5 and health["dispatch_s"] > 0
+        assert health["queue_wait_s"] == health["queue_wait_max_s"] == 0.0
+    with running(artifacts["fixed8"], "--batch-window", "30000") as server:
+        port = server.server_address[1]
+        threads = [threading.Thread(target=_post_npy,
+                                    args=(port, "/predict", _frames(2, seed=20 + i)))
+                   for i in range(4)]
+        t0 = time.monotonic()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=TIMEOUT)
+            assert not t.is_alive()
+        elapsed = time.monotonic() - t0
+        health = _get(port, "/healthz")[1]
+    assert health["batches"] == 1 and health["rows"] == 8 and health["requests"] == 4
+    longest = health["queue_wait_max_s"]
+    assert 0 < longest <= health["queue_wait_s"] <= 4 * longest
+    assert longest < elapsed  # each wait ends at the dispatch, before its reply
 
 
 def test_batching_oversize_polymorphic_request_dispatches_solo(artifacts):
