@@ -27,7 +27,16 @@ line, fail the run by raising:
    both also at the extreme slopes and beyond them, on non-square canvases
    and at 1 and 5 channels (the shear also at one image, a shift bound past
    the canvas, canvases at odd addresses and a tall one whose ShY windows
-   pass their cap), with two identities between the modes;
+   pass their cap), with two identities between the modes; and the bf16
+   training batch norm with its ReLU and residual add (``batch_norm_act``,
+   no TPU counterpart) at every batch-norm shape of the bf16 model at batch
+   32 in its three forms: statistics against float64 and ATen's, the output
+   bit for bit the plain float32 steps on the kernel's statistics and within
+   a bf16 ulp of ATen's batch norm, the backward against the plain
+   sequence's autograd and against float64 on the kernel's own forward, two
+   launches bit for bit, a CUDA graph's replay bit for bit, and device ms
+   forward and backward against the byte bounds; float32 training (phase
+   5) must not launch it, bf16 training (phase 9a) must;
 3. serving: ``MultiHeadPoseResNet(resnet101)`` at full width (256² frames,
    64² heatmaps, 21 joints) with seeded random weights answers uint8
    requests of 1, 8 and 32 frames through ``make_predict_fn``, checked
@@ -190,7 +199,7 @@ RAW, BATCH = 288, 32  # stored crop side; batch per domain (cli/args.py:34)
 LABEL_SHAPES = [(64, 6, "union_minus", True, True), (32, 4, "inverse", True, True),
                 (16, 3, "inverse", False, False)]
 LIBRARIES = {"render_gaussian": ["render_gaussian.cu"], "pseudo_label": ["pseudo_label.cu"],
-             "rotate3": ["rotate3.cu"]}
+             "rotate3": ["rotate3.cu"], "batch_norm_act": ["batch_norm_act.cu"]}
 NO_LAUNCHES = {"render_gaussian": 0, "pseudo_labels": 0, "rotate3_fused": 0,
                "rotate3_fused_f32": 0, "rotate3": 0, "shear": 0}
 PATH_KERNELS = ("render_gaussian", "pseudo_labels", "rotate3_fused")
@@ -239,12 +248,13 @@ def host_ms(torch, fn, iters: int = 100) -> float:
 PORT_KERNELS = ("render_gaussian_kernel", "pseudo_labels_kernel", "rotate3_fused_kernel",
                 "rotate3_u16_kernel")
 # kernel kinds, by the first kind whose marker a kernel's printed name
-# holds: NCCL's collectives, the port's kernels, cuDNN's NCHW <-> NHWC conversions, batch norm,
+# holds: NCCL's collectives, the port's kernels, cuDNN's NCHW <-> NHWC conversions, batch norm
+# (ATen's, cuDNN's float32 "batchnorm_*" and the port's batch_norm_act_*),
 # convolutions and GEMMs (cuDNN, CUTLASS, cuBLAS), the multi-tensor
 # (foreach) SGD and EMA passes; "other" is the remaining elementwise and
 # reduction work
 KERNEL_KINDS = (("collective", ("nccl",)), ("port", PORT_KERNELS), ("layout", ("nchwToNhwc", "nhwcToNchw")),
-                ("batch_norm", ("batch_norm", "bn_")),
+                ("batch_norm", ("batch_norm", "batchnorm", "bn_")),
                 ("convolution", ("xmma", "cutlass", "cudnn", "conv", "gemm", "dgrad", "wgrad")),
                 ("foreach", ("multi_tensor_apply",)))
 
@@ -849,6 +859,295 @@ def label_row(torch, pseudo_label, batch, size, reach, gf_kind, fused, normalize
         row["general_kernel"] = {"max_abs_err_to_kernel": general_err,
                                  "gf_only_ms": cuda_ms(torch, launch)}
     return row
+
+
+# batch_norm_act's three forms, (relu, residual), and its limits on the card:
+# the statistics against float64 (float32 reduction order: the mean's error
+# in units of the channel's std, the variance's relative); the backward
+# (relative distances of norms) against the plain sequence's autograd, where
+# a bf16 rounding of dx is 2^-9 of each element and the ReLU masks differ
+# wherever t and ATen's t differ at a statistic's last bit (a flipped element
+# moves its channel's sums by ~1e-3 of their norm at 2,048 rows), and against
+# float64 given the kernels' own forward (mask and statistics), where only
+# dx's bf16 rounding and float32 sums remain and the residual's gradient is
+# dy masked, exactly
+BN_ACT_FORMS = {"relu_residual": (True, True), "relu": (True, False), "bn": (False, False)}
+BN_STAT_TOL = {"mean": 1e-5, "var": 1e-4}
+BN_GRAD_TOL = {"dx": 8e-3, "dresidual": 8e-3, "dweight": 4e-3, "dbias": 4e-3}
+BN_GRAD_F64_TOL = {"dx": 4e-3, "dresidual": 0.0, "dweight": 1e-5, "dbias": 1e-5}
+
+
+def bn_shapes(torch, models, batch=BATCH):
+    """Every distinct ``(N, C, H, W)`` a batch norm of the bf16 model sees
+    in its DA forward (features, main head, adversarial heads) at ``batch``
+    frames of ``IMAGE``², from a forward on the meta device."""
+    with torch.device("meta"):
+        model = models.MultiHeadPoseResNet(models.resnet101(dtype=torch.bfloat16),
+                                           num_keypoints=JOINTS, dtype=torch.bfloat16)
+    calls = []
+    for m in model.modules():
+        if isinstance(m, models.BatchNorm2d):
+            m.register_forward_hook(lambda mod, i, o: calls.append(tuple(i[0].shape)))
+    with torch.no_grad():
+        model.train()(torch.empty(batch, IMAGE, IMAGE, 3, device="meta"))
+    return sorted(set(calls), key=lambda s: (-s[0] * s[2] * s[3], s[1]))
+
+
+def bf16_ulps(torch, got, want, scale) -> float:
+    """The largest ``|got - want|`` in units of bf16's spacing at ``|scale|``."""
+    got, want, scale = got.detach().float(), want.detach().float(), scale.detach().float()
+    spacing = torch.exp2(torch.floor(torch.log2(scale.abs().clamp_min(2.0 ** -126))) - 7)
+    return float(((got - want).abs() / spacing).max())
+
+
+def graphed_ms(torch, make, reps: int = 10, replays: int = 10) -> float:
+    """Device ms of one call of ``make()``'s function: a CUDA graph of
+    ``reps`` calls, replayed ``replays`` times between CUDA events, so
+    neither the host's launches nor Python set the pace (as in the training
+    loop's replays). ``make`` runs on the capture's stream, so the leaves it
+    makes meet autograd there first (as the fused loop's warm-up does)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn = make()
+        for _ in range(3):
+            fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def bn_act_case(torch, bna, models, shape, form, seed, timed=True, offset=0):
+    """One shape and form of ``batch_norm_act`` on the card: the kernels
+    against ``batch_norm_act_plain`` (ATen's batch norm, the add, the ReLU)
+    and against float64 statistics, twice for determinism, and timed.
+    ``offset`` places x that many elements into its buffer (not 16-byte
+    aligned: the kernels' 1-channel vectors)."""
+    relu, with_res = BN_ACT_FORMS[form]
+    n, c, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def act(scale, means):
+        buf = torch.empty(n * h * w * c + offset, dtype=torch.bfloat16, device="cuda")
+        v = buf[offset:].view(n, h, w, c)
+        v.copy_(torch.randn(n, h, w, c, device="cuda", generator=g) * scale + means)
+        return v.permute(0, 3, 1, 2)  # channels-last, as the model's activations
+
+    x = act(1.5, 2.0 * torch.randn(c, device="cuda", generator=g))  # means far from 0
+    r = act(1.0, 0.0) if with_res else None
+    dy = act(1.0, 0.0)
+    bn = models.BatchNorm2d(c).cuda().train()
+    with torch.no_grad():
+        bn.weight.copy_(1.0 + 0.2 * torch.randn(c, device="cuda", generator=g))
+        bn.bias.copy_(0.3 * torch.randn(c, device="cuda", generator=g))
+        bn.running_mean.copy_(0.5 * torch.randn(c, device="cuda", generator=g))
+        bn.running_var.copy_(0.5 + torch.rand(c, device="cuda", generator=g))
+
+    def run(fn, layer):
+        xi = x.detach().clone().requires_grad_(True)
+        ri = None if r is None else r.detach().clone().requires_grad_(True)
+        y = fn(xi, layer, relu=relu, residual=ri)
+        # the kernels' mean and invstd, as their backward reads them
+        stats = y.grad_fn.saved_tensors[3].clone() if fn is bna.batch_norm_act_cuda else None
+        inputs = [xi, layer.weight, layer.bias] + ([ri] if ri is not None else [])
+        grads = torch.autograd.grad(y, inputs, dy)
+        return y, grads, stats
+
+    k1, k2, p = copy.deepcopy(bn), copy.deepcopy(bn), copy.deepcopy(bn)
+    launches = bna.launches
+    y_k, grads_k, saved = run(bna.batch_norm_act_cuda, k1)
+    mean, invstd = saved
+    y_k2, grads_k2, saved2 = run(bna.batch_norm_act_cuda, k2)
+    y_p, grads_p, _ = run(bna.batch_norm_act_plain, p)
+    torch.cuda.synchronize()
+    if bna.launches - launches != 4:
+        raise AssertionError(f"batch_norm_act {shape} {form}: {bna.launches - launches} "
+                             "launches for two forwards and two backwards")
+    deterministic = (torch.equal(y_k, y_k2) and torch.equal(saved, saved2)
+                     and all(torch.equal(a, b) for a, b in zip(grads_k, grads_k2))
+                     and all(torch.equal(getattr(k1, b), getattr(k2, b))
+                             for b in ("running_mean", "running_var", "num_batches_tracked")))
+    # statistics: the kernels', ATen's (batch_norm_stats) and float64's
+    x64 = x.double()
+    mean64, var64 = x64.mean(dim=(0, 2, 3)), x64.var(dim=(0, 2, 3), unbiased=False)
+    std64 = var64.sqrt()
+    var_k = 1.0 / invstd.double() ** 2 - bn.eps
+    mean_a, invstd_a = torch.batch_norm_stats(x, bn.eps)
+    var_a = 1.0 / invstd_a.double() ** 2 - bn.eps
+    stats = {"mean_err": float(((mean.double() - mean64).abs() / std64).max()),
+             "var_err": float(((var_k - var64).abs() / var64).max()),
+             "aten_mean_err": float(((mean_a.double() - mean64).abs() / std64).max()),
+             "aten_var_err": float(((var_a - var64).abs() / var64).max()),
+             "running_mean_err": float(((k1.running_mean - p.running_mean).double().abs()
+                                        / std64).max()),
+             "running_var_err": float(((k1.running_var - p.running_var).double().abs()
+                                       / p.running_var.double()).max())}
+    # the forward, given the kernels' statistics, in the plain float32 steps
+    sh = (1, -1, 1, 1)
+    t = ((x.float() - mean.view(sh)) * invstd.view(sh) * bn.weight.view(sh)
+         + bn.bias.view(sh)).to(torch.bfloat16)
+    want = t if r is None else t + r
+    want = torch.relu(want) if relu else want
+    with torch.no_grad():
+        t_p = copy.deepcopy(bn)(x)  # the plain batch norm's own output
+    # ulps at the larger of the values and |weight|, the output's unit scale:
+    # near t = 0 the statistics' last bits move t by more than t's own spacing
+    unit = bn.weight.detach().abs().view(sh).expand_as(t)
+    t_scale = torch.maximum(torch.maximum(t.float().abs(), t_p.float().abs()), unit)
+    scale = torch.maximum(t_scale, y_p.detach().float().abs())
+    if r is not None:
+        scale = torch.maximum(scale, r.float().abs())
+    names = ["dx", "dweight", "dbias"] + (["dresidual"] if with_res else [])
+
+    def gaps(got, want):
+        return {nm: float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+                for nm, a, b in zip(names, got, want)}
+
+    # the backward in float64 from the kernels' own mask and statistics
+    g64 = dy.double() * (~(y_k.detach() <= 0) if relu else torch.ones_like(y_k, dtype=torch.bool))
+    xhat = (x64 - mean.double().view(sh)) * invstd.double().view(sh)
+    mg, mgx = g64.mean(dim=(0, 2, 3)).view(sh), (g64 * xhat).mean(dim=(0, 2, 3)).view(sh)
+    dx64 = (g64 - mg - xhat * mgx) * (invstd.double() * bn.weight.double()).view(sh)
+    want64 = [dx64, (g64 * xhat).sum(dim=(0, 2, 3)), g64.sum(dim=(0, 2, 3)), g64]
+    grad_err, grad_err_f64 = gaps(grads_k, grads_p), gaps(grads_k, want64)
+    row = {"shape": list(shape), "form": form, "vec": bna._plan_for(x).vec,
+           "deterministic": deterministic, "forward_bit_equal_given_stats": torch.equal(y_k, want),
+           "ulps_vs_plain": bf16_ulps(torch, t, t_p, t_scale),
+           "share_unequal_vs_plain": float((t != t_p).float().mean()),
+           "ulps_out_vs_plain": bf16_ulps(torch, y_k, y_p, scale),
+           "max_abs_err": float((y_k.detach().float() - y_p.detach().float()).abs().max()),
+           "num_batches_tracked": int(k1.num_batches_tracked), **stats, "grad_err": grad_err,
+           "grad_err_f64_given_forward": grad_err_f64}
+    faults = [k for k, ok in (
+        ("deterministic", deterministic), ("forward_bit_equal_given_stats",
+                                           row["forward_bit_equal_given_stats"]),
+        ("ulps_vs_plain", row["ulps_vs_plain"] <= 1.0),
+        # the sum rounds again: ties to even can double t's one ulp there
+        ("ulps_out_vs_plain", row["ulps_out_vs_plain"] <= (2.0 if with_res else 1.0)),
+        ("num_batches_tracked", row["num_batches_tracked"] == int(p.num_batches_tracked) == 1),
+        ("mean_err", stats["mean_err"] <= BN_STAT_TOL["mean"]),
+        ("var_err", stats["var_err"] <= BN_STAT_TOL["var"]),
+        ("running_mean_err", stats["running_mean_err"] <= BN_STAT_TOL["mean"]),
+        ("running_var_err", stats["running_var_err"] <= BN_STAT_TOL["var"]),
+        *((f"grad_err.{nm}", v <= BN_GRAD_TOL[nm]) for nm, v in grad_err.items()),
+        *((f"grad_err_f64.{nm}", v <= BN_GRAD_F64_TOL[nm]) for nm, v in grad_err_f64.items()))
+              if not ok]
+    if faults:
+        raise AssertionError(f"batch_norm_act {shape} {form}: {faults} {row}")
+    if timed:
+        # backward: a forward and backward call less the forward alone (in a
+        # graph, autograd must run where the forward ran)
+        elems = n * c * h * w
+        fwd_bytes, bwd_bytes = 2 * elems * (3 + with_res), 2 * elems * (5 + 2 * with_res)
+        for label, fn, layer in (("ms", bna.batch_norm_act_cuda, k1),
+                                 ("plain_ms", bna.batch_norm_act_plain, p)):
+
+            def forward(fn=fn, layer=layer):
+                lay = copy.deepcopy(layer)
+                return lambda: fn(x, lay, relu=relu, residual=r)
+
+            def both(fn=fn, layer=layer):
+                lay = copy.deepcopy(layer)
+                xg = x.detach().clone().requires_grad_(True)
+                rg = None if r is None else r.detach().clone().requires_grad_(True)
+                inputs = [xg, lay.weight, lay.bias] + ([rg] if rg is not None else [])
+                return lambda: torch.autograd.grad(fn(xg, lay, relu=relu, residual=rg),
+                                                   inputs, dy)
+
+            fwd_ms = graphed_ms(torch, forward)
+            row[label] = {"forward": fwd_ms, "backward": graphed_ms(torch, both) - fwd_ms}
+        row["bound_ms"] = {"forward": fwd_bytes / HBM_BYTES_PER_S * 1e3,
+                           "backward": bwd_bytes / HBM_BYTES_PER_S * 1e3}
+    return row
+
+
+def bn_act_graph_check(torch, bna, models, shape=(BATCH, 256, 16, 16)) -> bool:
+    """A forward and backward of each form captured in one CUDA graph and
+    replayed once, against the same calls run eagerly: outputs, gradients
+    and running statistics bit for bit (the kernels' programmatic launches
+    inside a graph)."""
+    n, c, h, w = shape
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def act():
+        return (torch.randn(n, h, w, c, device="cuda", generator=g) + 0.5).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+
+    x0, r0, dy = act(), act(), act()
+    layers = [models.BatchNorm2d(c).cuda().train() for _ in BN_ACT_FORMS]
+
+    def step(ls, x, r):
+        out = []
+        for layer, (relu, res) in zip(ls, BN_ACT_FORMS.values()):
+            y = bna.batch_norm_act_cuda(x, layer, relu=relu, residual=r if res else None)
+            inputs = [x, layer.weight, layer.bias] + ([r] if res else [])
+            out += [y, *torch.autograd.grad(y, inputs, dy)]
+        return out
+
+    def leaves():
+        return x0.clone().requires_grad_(True), r0.clone().requires_grad_(True)
+
+    eager_layers = copy.deepcopy(layers)
+    eager = step(eager_layers, *leaves())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the graph's leaves and layers meet autograd here first
+        graph_layers, xr = copy.deepcopy(layers), leaves()
+        step(copy.deepcopy(layers), *xr)  # the warm-up, on other layers
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        replayed = step(graph_layers, *xr)  # a capture runs nothing
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    buffers = ("running_mean", "running_var", "num_batches_tracked")
+    return (all(torch.equal(a, b) for a, b in zip(eager, replayed))
+            and all(torch.equal(getattr(a, k), getattr(b, k))
+                    for a, b in zip(eager_layers, graph_layers) for k in buffers))
+
+
+def phase_bn_act(torch, bna, models):
+    """The fused training batch norm (``ops/batch_norm_act.py``) at every
+    batch-norm shape of the bf16 model at batch 32, in its three forms,
+    against ``batch_norm_act_plain`` and float64 statistics (``bn_act_case``),
+    timed forward and backward (``graphed_ms``) against their byte bounds;
+    then shapes off the model's path: channels not a multiple of 8 and an
+    unaligned input (the 1-channel vectors), few rows, wide channels; then a
+    CUDA graph's replay against eager calls (``bn_act_graph_check``)."""
+    rows = [bn_act_case(torch, bna, models, shape, form, 100 + i)
+            for i, (shape, form) in enumerate((s, f) for s in bn_shapes(torch, models)
+                                              for f in BN_ACT_FORMS)]
+    odd = [bn_act_case(torch, bna, models, shape, form, 200 + i, timed=False, offset=offset)
+           for i, (shape, form, offset) in enumerate((
+               ((3, 20, 7, 5), "relu_residual", 0), ((2, 24, 3, 3), "relu", 0),
+               ((4, 64, 17, 13), "relu_residual", 1), ((2, 3000, 2, 3), "bn", 0),
+               ((5, 40, 1, 1), "relu", 0)))]
+    total = {k: sum(r[k][part] for r in rows for part in ("forward", "backward"))
+             for k in ("ms", "plain_ms", "bound_ms")}
+    if not bn_act_graph_check(torch, bna, models):
+        raise AssertionError("batch_norm_act: a CUDA graph's replay differs from eager calls")
+    line("phase 2 batch_norm_act kernels vs plain (bf16; stats vs float64, forward bit-equal "
+         "given the stats, within 1 ulp of plain, backward, determinism)", {
+             "rows": rows, "odd_shapes": odd, "sum_over_rows_ms": total,
+             "graph_replay_bit_equal": True,
+             "tolerances": {"stats": BN_STAT_TOL, "grads": BN_GRAD_TOL,
+                            "grads_f64": BN_GRAD_F64_TOL, "ulps": 1}})
+    stem = next(r for r in rows if r["form"] == "relu")  # the largest shape comes first
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows + odd),
+            **{k: stem[k]["forward"] + stem[k]["backward"] for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": "bytes"}
 
 
 def phase_labels(torch, pseudo_label):
@@ -3652,13 +3951,14 @@ def main() -> int:
         return 2
     from dahpe_tpu_torch import data, evaluate, models, train
     from dahpe_tpu_torch.data import device_aug
-    from dahpe_tpu_torch.ops import _build, gaussian, pseudo_label, shear
+    from dahpe_tpu_torch.ops import _build, batch_norm_act, gaussian, pseudo_label, shear
 
     smi = phase_device(torch, _build)
     rows = {"render_gaussian": phase_gaussian(torch, gaussian)}
     rows["rotate3_fused"], rows["rotate3_fused_f32"] = phase_rotate(torch, shear, device_aug)
     rows["pseudo_labels"] = phase_labels(torch, pseudo_label)
     rows["rotate3"], rows["shear"] = phase_shears(torch, shear)
+    rows["batch_norm_act"] = phase_bn_act(torch, batch_norm_act, models)
     model = build_model(torch, models).cuda()
     kernels = Kernels(gaussian, pseudo_label, shear)
 
@@ -3670,7 +3970,10 @@ def main() -> int:
         raise AssertionError("render_gaussian kernel never launched on the eval path")
     del model
     kernels.reset()  # main path 2: DA training
+    bn_launches = batch_norm_act.launches
     trained = phase_training(torch, models, train, data, kernels, smi)
+    if batch_norm_act.launches != bn_launches:
+        raise AssertionError("the float32 training path launched the bf16 batch-norm kernels")
     for name, count in trained["launches"].items():
         if name in PATH_KERNELS and count == 0:
             raise AssertionError(f"{name} kernel never launched on the training path")
@@ -3726,7 +4029,10 @@ def main() -> int:
     # phase 9: the bfloat16 compute dtype on each path
     t9 = time.perf_counter()
     kernels.reset()  # main path 8: the bf16 DA and pretrain iterations
+    bn_launches = batch_norm_act.launches
     phase_bf16_training(torch, models, train, data, kernels, smi)
+    if batch_norm_act.launches == bn_launches:
+        raise AssertionError("the bf16 training path never launched the batch-norm kernels")
     for name, count in kernels.read().items():
         if name in PATH_KERNELS and count == 0:
             raise AssertionError(f"{name} kernel never launched on the bf16 training path")
@@ -3809,7 +4115,9 @@ def main() -> int:
         "rotate3_fused_f32": ("rotate3.cu", "dahpe_tpu/ops/pallas/shear.py:164"),
         "rotate3": ("rotate3.cu", "dahpe_tpu/ops/pallas/shear.py:215"),
         "shear": ("rotate3.cu", "dahpe_tpu/ops/pallas/shear.py:92"),
+        "batch_norm_act": ("batch_norm_act.cu", None),  # no TPU counterpart
     }
+    launches["batch_norm_act"] = batch_norm_act.launches  # this process's, phase 2 included
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

@@ -27,6 +27,13 @@ trainer's gradient all-reduce averages them. It is plain tensor ops, so it
 runs on gloo (CPU) and NCCL (card) alike, and NCCL's collectives are
 captured with a CUDA graph. Without a group, at world size 1 and in eval
 mode the layer is ``nn.BatchNorm2d``'s own forward.
+
+The models call each layer through
+:func:`~dahpe_tpu_torch.ops.batch_norm_act.batch_norm_act` with the ReLU
+and the residual add that follow it (:func:`bn_relu_sequence` in the
+``nn.Sequential`` stages): a bfloat16 training forward with local
+statistics on a card runs as the fused kernels there, everything else as
+this layer's forward, the add and the ReLU.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 from torch import nn
+
+from dahpe_tpu_torch.ops.batch_norm_act import batch_norm_act
 
 
 class _CrossRankNorm(torch.autograd.Function):
@@ -105,3 +114,20 @@ def set_process_group(module: nn.Module, group=None, *, enabled: bool = True) ->
         if isinstance(mod, BatchNorm2d):
             mod.process_group, mod._cross_rank = (group if cross else None), cross
     return module
+
+
+def bn_relu_sequence(modules, x: torch.Tensor) -> torch.Tensor:
+    """Run ``modules`` in order on ``x``, each :class:`BatchNorm2d` that an
+    ``nn.ReLU`` follows as one ``batch_norm_act(..., relu=True)`` in place of
+    the pair (the ReLU module stays in the tree and is skipped here)."""
+    mods = list(modules)
+    i = 0
+    while i < len(mods):
+        if (isinstance(mods[i], BatchNorm2d) and i + 1 < len(mods)
+                and isinstance(mods[i + 1], nn.ReLU)):
+            x = batch_norm_act(x, mods[i], relu=True)
+            i += 2
+        else:
+            x = mods[i](x)
+            i += 1
+    return x

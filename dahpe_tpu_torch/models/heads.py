@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from dahpe_tpu_torch.models.batch_norm import BatchNorm2d
+from dahpe_tpu_torch.models.batch_norm import BatchNorm2d, bn_relu_sequence
 from dahpe_tpu_torch.models.resnet import Conv2d
 
 
@@ -44,6 +44,9 @@ class PlainHead(nn.Sequential):
         super().__init__(*layers)
         head_init_(self)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return bn_relu_sequence(self, x)
+
 
 class DownsampleStage(nn.Sequential):
     """[BN, ReLU, Conv3x3 s2, BN, ReLU, Conv1x1, BN, ReLU]: one stride-2 block
@@ -58,6 +61,9 @@ class DownsampleStage(nn.Sequential):
             Conv2d(c, c, 1, compute_dtype=dtype), BatchNorm2d(c), nn.ReLU(inplace=True),
         )
         head_init_(self)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return bn_relu_sequence(self, x)
 
 
 class FusionHead(nn.Module):

@@ -9,7 +9,9 @@ convs start from the JAX package's initialisation (:func:`conv_init_`).
 ``dtype`` is the compute dtype, as the Flax modules' ``dtype``: with
 ``torch.bfloat16`` every conv casts its input and its float32 weight to
 bfloat16 and returns bfloat16 (:class:`Conv2d`), and batch norm keeps
-float32 statistics (:mod:`dahpe_tpu_torch.models.batch_norm`). ``None``
+float32 statistics (:mod:`dahpe_tpu_torch.models.batch_norm`). Each batch
+norm runs with the ReLU and the residual add after it as one
+``batch_norm_act`` (:mod:`dahpe_tpu_torch.ops.batch_norm_act`). ``None``
 computes in the weights' dtype, float32, with the operations of a plain
 ``nn.Conv2d``.
 """
@@ -22,6 +24,7 @@ import torch
 from torch import nn
 
 from dahpe_tpu_torch.models.batch_norm import BatchNorm2d
+from dahpe_tpu_torch.ops.batch_norm_act import batch_norm_act
 
 
 class Conv2d(nn.Conv2d):
@@ -63,6 +66,14 @@ def _downsample(cin: int, cout: int, stride: int, dtype) -> nn.Sequential:
     return nn.Sequential(_conv(cin, cout, 1, stride, dtype=dtype), BatchNorm2d(cout))
 
 
+def _identity(downsample: nn.Sequential | None, x: torch.Tensor) -> torch.Tensor:
+    """A block's residual: ``x``, or its downsampling (conv, then batch norm
+    without a ReLU)."""
+    if downsample is None:
+        return x
+    return batch_norm_act(downsample[0](x), downsample[1], relu=False)
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
@@ -81,10 +92,9 @@ class BasicBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return self.relu(out + identity)
+        identity = _identity(self.downsample, x)
+        out = batch_norm_act(self.conv1(x), self.bn1, relu=True)
+        return batch_norm_act(self.conv2(out), self.bn2, relu=True, residual=identity)
 
 
 class Bottleneck(nn.Module):
@@ -108,11 +118,10 @@ class Bottleneck(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        return self.relu(out + identity)
+        identity = _identity(self.downsample, x)
+        out = batch_norm_act(self.conv1(x), self.bn1, relu=True)
+        out = batch_norm_act(self.conv2(out), self.bn2, relu=True)
+        return batch_norm_act(self.conv3(out), self.bn3, relu=True, residual=identity)
 
 
 class ResNet(nn.Module):
@@ -145,7 +154,7 @@ class ResNet(nn.Module):
         return 512 * self.block.expansion
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.maxpool(batch_norm_act(self.conv1(x), self.bn1, relu=True))
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
 
 

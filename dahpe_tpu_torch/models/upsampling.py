@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dahpe_tpu_torch.models.batch_norm import BatchNorm2d
+from dahpe_tpu_torch.models.batch_norm import BatchNorm2d, bn_relu_sequence
 from dahpe_tpu_torch.models.heads import head_init_
 
 
@@ -68,3 +68,6 @@ class Upsampling(nn.Sequential):
             in_channels = dim
         super().__init__(*layers)
         head_init_(self)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return bn_relu_sequence(self, x)
