@@ -201,7 +201,7 @@ LABEL_SHAPES = [(64, 6, "union_minus", True, True), (32, 4, "inverse", True, Tru
 LIBRARIES = {"render_gaussian": ["render_gaussian.cu"], "pseudo_label": ["pseudo_label.cu"],
              "rotate3": ["rotate3.cu"], "batch_norm_act": ["batch_norm_act.cu"]}
 NO_LAUNCHES = {"render_gaussian": 0, "pseudo_labels": 0, "rotate3_fused": 0,
-               "rotate3_fused_f32": 0, "rotate3": 0, "shear": 0}
+               "rotate3_fused_f32": 0, "rotate3": 0, "shear": 0, "batch_norm_act": 0}
 PATH_KERNELS = ("render_gaussian", "pseudo_labels", "rotate3_fused")
 # the path kernels' device names, as a profile lists them
 PATH_KERNEL_NAMES = ("render_gaussian_kernel", "pseudo_labels_kernel", "rotate3_fused_kernel")
@@ -1402,7 +1402,7 @@ def phase_validation(torch, evaluate, gaussian, data, model):
 class Kernels:
     """The launch counters of the kernel wrappers: name -> (module, counter)."""
 
-    def __init__(self, gaussian, pseudo_label, shear):
+    def __init__(self, gaussian, pseudo_label, shear, batch_norm_act):
         self.counters = {
             "render_gaussian": (gaussian, "launches"),
             "pseudo_labels": (pseudo_label, "launches"),
@@ -1410,6 +1410,7 @@ class Kernels:
             "rotate3_fused_f32": (shear, "fused_f32_launches"),
             "rotate3": (shear, "rotate3_launches"),
             "shear": (shear, "shear_launches"),
+            "batch_norm_act": (batch_norm_act, "launches"),
         }
 
     def reset(self):
@@ -2447,6 +2448,8 @@ def phase_cli_chunked(torch, kernels, smi, cli, bf16: bool = False):
     eval_batches = (3 + (2 if bf16 else 0)) * cli["val_batches"]
     expected = dict(NO_LAUNCHES, render_gaussian=7 * iterations + eval_batches,
                     pseudo_labels=3 * iterations, rotate3_fused=2 * iterations)
+    if bf16:  # the batch-norm kernels: some launches (float32: none)
+        expected["batch_norm_act"] = max(launches["batch_norm_act"], 1)
     if launches != expected:
         raise AssertionError(f"chunked cli: launches {launches}, expected {expected}")
     records = [json.loads(r) for r in open(os.path.join(root, tag + "chunk_straight",
@@ -2553,7 +2556,10 @@ def bf16_step_checks(torch, model, state, single, kernels, iters: int = 4) -> di
         metrics = single()
     torch.cuda.synchronize()
     launches = kernels.read()
-    expected = dict(NO_LAUNCHES, render_gaussian=7, pseudo_labels=3, rotate3_fused=2)
+    # the batch-norm kernels: as many launches in each iteration, at least one
+    bn = launches["batch_norm_act"] // iters
+    expected = dict(NO_LAUNCHES, render_gaussian=7, pseudo_labels=3, rotate3_fused=2,
+                    batch_norm_act=max(bn, 1))
     if launches != {k: v * iters for k, v in expected.items()}:
         raise AssertionError(f"bf16 training: launches {launches} for {iters} iterations, "
                              f"expected {expected} each")
@@ -2788,10 +2794,10 @@ def worker_step(torch, device, rank, outdir):
     import torch.distributed as dist
 
     from dahpe_tpu_torch import data, models, parallel, train
-    from dahpe_tpu_torch.ops import gaussian, pseudo_label, shear
+    from dahpe_tpu_torch.ops import batch_norm_act, gaussian, pseudo_label, shear
 
     torch.backends.cudnn.deterministic = True
-    kernels = Kernels(gaussian, pseudo_label, shear)
+    kernels = Kernels(gaussian, pseudo_label, shear, batch_norm_act)
     world = parallel.world_size()
     stores = [data.DeviceDataStore(SyntheticSplit(256, RAW, seed=seed), device=device,
                                    raw_size=RAW, verbose=False, shard=(rank, world))
@@ -2867,11 +2873,11 @@ def worker_cli(torch, device, rank, outdir):
 
     from dahpe_tpu_torch.cli import train as train_cli
     from dahpe_tpu_torch.cli.args import build_parser
-    from dahpe_tpu_torch.ops import gaussian, pseudo_label, shear
+    from dahpe_tpu_torch.ops import batch_norm_act, gaussian, pseudo_label, shear
 
     register_cut_domains()
     torch.backends.cudnn.deterministic = True
-    kernels = Kernels(gaussian, pseudo_label, shear)
+    kernels = Kernels(gaussian, pseudo_label, shear, batch_norm_act)
 
     def argv(name, *extra):
         return build_parser("train").parse_args([
@@ -3332,10 +3338,10 @@ def cli_train_main(argv) -> int:
     synthetic domains, then one line of this process's kernel launches
     (the training CLI that phase 11c's drill drives)."""
     from dahpe_tpu_torch.cli import train as train_cli
-    from dahpe_tpu_torch.ops import gaussian, pseudo_label, shear
+    from dahpe_tpu_torch.ops import batch_norm_act, gaussian, pseudo_label, shear
 
     register_cut_domains()
-    kernels = Kernels(gaussian, pseudo_label, shear)
+    kernels = Kernels(gaussian, pseudo_label, shear, batch_norm_act)
     kernels.reset()
     rc = train_cli.cli_main(argv)
     print("chip_smoke launches " + json.dumps(kernels.read()), flush=True)
@@ -3515,7 +3521,8 @@ def phase_drill(torch, smi):
     # nothing)
     da_iters, val_batches = 2 * DRILL_ITERS, -(-CLI_VAL // BATCH)
     expected = dict(NO_LAUNCHES, render_gaussian=7 * da_iters + 2 * 2 * val_batches,
-                    pseudo_labels=3 * da_iters, rotate3_fused=2 * da_iters)
+                    pseudo_labels=3 * da_iters, rotate3_fused=2 * da_iters,
+                    batch_norm_act=max(launches["batch_norm_act"], 1))  # bf16: some
     if launches != expected:
         raise AssertionError(f"11c: launches {launches}, expected {expected}")
     shutil.rmtree(root, ignore_errors=True)  # the checkpoints: several GB
@@ -3760,9 +3767,9 @@ def experiment_run(torch, iters: int, *, draws: int | None = None, timed: bool =
     in the run, its seconds and what :func:`record` saw."""
     from dahpe_tpu_torch import parallel
     from dahpe_tpu_torch.experiments import adaptation
-    from dahpe_tpu_torch.ops import gaussian, pseudo_label, shear
+    from dahpe_tpu_torch.ops import batch_norm_act, gaussian, pseudo_label, shear
 
-    kernels = Kernels(gaussian, pseudo_label, shear)
+    kernels = Kernels(gaussian, pseudo_label, shear, batch_norm_act)
     seen = {}
     undo = [record(torch, seen, timed)]
     if draws:
@@ -3960,7 +3967,7 @@ def main() -> int:
     rows["rotate3"], rows["shear"] = phase_shears(torch, shear)
     rows["batch_norm_act"] = phase_bn_act(torch, batch_norm_act, models)
     model = build_model(torch, models).cuda()
-    kernels = Kernels(gaussian, pseudo_label, shear)
+    kernels = Kernels(gaussian, pseudo_label, shear, batch_norm_act)
 
     kernels.reset()  # main path 1: serving, then validation
     phase3 = phase_serving(torch, evaluate, models, model, smi)
@@ -3970,9 +3977,8 @@ def main() -> int:
         raise AssertionError("render_gaussian kernel never launched on the eval path")
     del model
     kernels.reset()  # main path 2: DA training
-    bn_launches = batch_norm_act.launches
     trained = phase_training(torch, models, train, data, kernels, smi)
-    if batch_norm_act.launches != bn_launches:
+    if trained["launches"]["batch_norm_act"] != 0:
         raise AssertionError("the float32 training path launched the bf16 batch-norm kernels")
     for name, count in trained["launches"].items():
         if name in PATH_KERNELS and count == 0:
@@ -4029,11 +4035,11 @@ def main() -> int:
     # phase 9: the bfloat16 compute dtype on each path
     t9 = time.perf_counter()
     kernels.reset()  # main path 8: the bf16 DA and pretrain iterations
-    bn_launches = batch_norm_act.launches
     phase_bf16_training(torch, models, train, data, kernels, smi)
-    if batch_norm_act.launches == bn_launches:
+    counts = kernels.read()
+    if counts["batch_norm_act"] == 0:
         raise AssertionError("the bf16 training path never launched the batch-norm kernels")
-    for name, count in kernels.read().items():
+    for name, count in counts.items():
         if name in PATH_KERNELS and count == 0:
             raise AssertionError(f"{name} kernel never launched on the bf16 training path")
         launches[name] += count
@@ -4117,7 +4123,6 @@ def main() -> int:
         "shear": ("rotate3.cu", "dahpe_tpu/ops/pallas/shear.py:92"),
         "batch_norm_act": ("batch_norm_act.cu", None),  # no TPU counterpart
     }
-    launches["batch_norm_act"] = batch_norm_act.launches  # this process's, phase 2 included
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",

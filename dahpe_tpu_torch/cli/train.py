@@ -552,6 +552,11 @@ def _run_phases(args, logger, saver, stop_signum):
             host_scalars(metrics, ("loss_s",))
         profiling.enable(False)
         print(f"profiler trace ({args.profile} iters) -> {tracedir}: {summary}")
+        # the share of the batch-norm calls on the fused kernels (a captured
+        # graph's counted at its capture, in the warm-up)
+        bn = [summary.get("since_on", {}).get(f"bn_act.{k}", 0) for k in ("kernel", "plain")]
+        if sum(bn):
+            print(f"batch norm on the fused kernels: {bn[0]} of {sum(bn)} calls")
     global_step = state.step
     if args.max_steps and global_step >= args.max_steps:
         print(f"--max-steps {args.max_steps} already reached (step {global_step}); "

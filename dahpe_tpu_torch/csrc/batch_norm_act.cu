@@ -43,9 +43,12 @@
 //   grid is at most two blocks an SM (264 on the H100). A thread issues 4
 //   rows' loads before it uses one, so an SM keeps ~32 KB in flight.
 // - Phase 1, statistics: each thread sums x - x[0, c] and its square (the
-//   shift keeps E[x^2] - E[x]^2 from cancelling), the block adds its rows
-//   in a fixed tree in shared memory and writes one float32 partial per
-//   channel. (Backward: sum(g) and sum(g * (x - mean)).)
+//   shift keeps E[x^2] - E[x]^2 from cancelling), kUnroll rows at a time in
+//   float32 and those sums in double (one float32 sum over the ~60 rows a
+//   thread walks at the stem put the variance up to 5e-6 off, 20x ATen's
+//   error), the block adds its rows in a fixed tree in shared memory and
+//   writes one double partial per channel. (Backward: sum(g) and
+//   sum(g * (x - mean)), in float32.)
 // - Phase 2, after a barrier: one warp a channel adds the channel's
 //   partials in double in a fixed order (lane l: blocks l, l + 32, ...,
 //   then a butterfly), so two launches give the same bits, with no
@@ -160,9 +163,9 @@ __device__ __forceinline__ size_t at(const Tile& t, int r, int channels) {
 // Adds red[j][lane_r * ct + lane_c] over lane_r = 0 .. rpp - 1 into
 // lane_r = 0, in a fixed tree, then writes the block's two sums of each
 // channel to partial[blockIdx.x][0 | 1][c]. Every thread must call it.
-template <int VEC>
-__device__ __forceinline__ void block_partials(float (&red)[2 * VEC][kThreads], const Tile& t,
-                                               int ct, int rpp, float* __restrict__ partial,
+template <int VEC, typename T>
+__device__ __forceinline__ void block_partials(T (&red)[2 * VEC][kThreads], const Tile& t,
+                                               int ct, int rpp, T* __restrict__ partial,
                                                int channels) {
   int top = 1;
   while (top < rpp) top <<= 1;
@@ -175,7 +178,7 @@ __device__ __forceinline__ void block_partials(float (&red)[2 * VEC][kThreads], 
   }
   __syncthreads();
   if (!t.live || t.lane_r != 0) return;
-  float* p = partial + (size_t)blockIdx.x * 2 * channels + t.c0;
+  T* p = partial + (size_t)blockIdx.x * 2 * channels + t.c0;
 #pragma unroll
   for (int j = 0; j < VEC; ++j) {
     p[j] = red[j][threadIdx.x];
@@ -186,8 +189,8 @@ __device__ __forceinline__ void block_partials(float (&red)[2 * VEC][kThreads], 
 // Phase 2's loop: each warp of the grid takes channels warp, warp + warps,
 // ... and, for each, the sums of its partials over the row blocks in double
 // in a fixed order; `done(c, s0, s1)` runs in lane 0.
-template <class Done>
-__device__ __forceinline__ void channel_sums(const float* __restrict__ partial, int row_blocks,
+template <typename T, class Done>
+__device__ __forceinline__ void channel_sums(const T* __restrict__ partial, int row_blocks,
                                              int channels, Done done) {
   const int lane = threadIdx.x % 32;
   const int per_block = blockDim.x / 32;
@@ -197,7 +200,7 @@ __device__ __forceinline__ void channel_sums(const float* __restrict__ partial, 
     double s0 = 0.0, s1 = 0.0;
 #pragma unroll 4
     for (int rb = lane; rb < row_blocks; rb += 32) {
-      const float* p = partial + (size_t)rb * 2 * channels + c;
+      const T* p = partial + (size_t)rb * 2 * channels + c;
       s0 += p[0];
       s1 += p[channels];
     }
@@ -220,16 +223,17 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                                   float* __restrict__ running_var,
                                   long long* __restrict__ num_batches_tracked,
                                   float* __restrict__ save_mean, float* __restrict__ save_invstd,
-                                  float* __restrict__ partial, int rows, int channels, int ct,
+                                  double* __restrict__ partial, int rows, int channels, int ct,
                                   int rpp, int row_blocks, int rows_per_block, double eps,
                                   double momentum) {
-  __shared__ float red[2 * VEC][kThreads];
+  __shared__ double red[2 * VEC][kThreads];
   const Tile t = tile<VEC>(rows, channels, ct, rpp, rows_per_block);
 
   // phase 1: each block's sums of x - x[0, c] and of its square
-  float sum[VEC], sq[VEC], shift[VEC];
+  double sum[VEC], sq[VEC];
+  float shift[VEC];
 #pragma unroll
-  for (int j = 0; j < VEC; ++j) sum[j] = sq[j] = 0.0f;
+  for (int j = 0; j < VEC; ++j) sum[j] = sq[j] = 0.0;
   if (t.live) {
     const Pack<VEC> k = load<VEC>(x + t.c0);
 #pragma unroll
@@ -239,15 +243,23 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
         if (r + u * rpp < t.r_end) v[u] = load<VEC>(x + at(t, r + u * rpp, channels));
+      float gs[VEC], gq[VEC];  // the kUnroll rows' sums
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) gs[j] = gq[j] = 0.0f;
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (r + u * rpp >= t.r_end) break;
 #pragma unroll
         for (int j = 0; j < VEC; ++j) {
           const float d = bf(v[u].s[j]) - shift[j];
-          sum[j] += d;
-          sq[j] = fmaf(d, d, sq[j]);
+          gs[j] += d;
+          gq[j] = fmaf(d, d, gq[j]);
         }
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        sum[j] += gs[j];
+        sq[j] += gq[j];
       }
     }
   }
@@ -457,7 +469,7 @@ cudaError_t forward_mode(dim3 grid, cudaStream_t s, const unsigned short* x,
                          const unsigned short* residual, unsigned short* y, const float* weight,
                          const float* bias, float* running_mean, float* running_var,
                          long long* num_batches, float* save_mean, float* save_invstd,
-                         float* partial, int rows, int channels, int ct, int rpp, int row_blocks,
+                         double* partial, int rows, int channels, int ct, int rpp, int row_blocks,
                          int rows_per_block, double eps, double momentum) {
   return launch(batch_norm_act_forward_kernel<VEC, MODE>, grid, s, x, residual, y, weight, bias,
                 running_mean, running_var, num_batches, save_mean, save_invstd, partial, rows,
@@ -490,7 +502,7 @@ bool valid_plan(int rows, int channels, int vec, int ct, int rpp, int row_blocks
 // residual (mode 2, else null) and y are (rows, channels) bf16 in row-major
 // order; weight, bias, the running statistics and save_mean/save_invstd
 // (written) are `channels` float32; partial is 2 * row_blocks * channels
-// float32 scratch. Returns the launch's CUDA error (a grid of more blocks
+// double scratch. Returns the launch's CUDA error (a grid of more blocks
 // than the card holds at once is refused), or cudaErrorInvalidValue for a
 // plan the kernel does not take.
 extern "C" int batch_norm_act_forward(const void* x, const void* residual, void* y,
@@ -505,7 +517,7 @@ extern "C" int batch_norm_act_forward(const void* x, const void* residual, void*
     return (int)cudaErrorInvalidValue;
   using Fn = cudaError_t (*)(dim3, cudaStream_t, const unsigned short*, const unsigned short*,
                              unsigned short*, const float*, const float*, float*, float*,
-                             long long*, float*, float*, float*, int, int, int, int, int, int,
+                             long long*, float*, float*, double*, int, int, int, int, int, int,
                              double, double);
   static const Fn table[2][3] = {
       {forward_mode<8, kPlain>, forward_mode<8, kRelu>, forward_mode<8, kAddRelu>},
@@ -516,14 +528,14 @@ extern "C" int batch_norm_act_forward(const void* x, const void* residual, void*
       static_cast<const float*>(weight), static_cast<const float*>(bias),
       static_cast<float*>(running_mean), static_cast<float*>(running_var),
       static_cast<long long*>(num_batches_tracked), static_cast<float*>(save_mean),
-      static_cast<float*>(save_invstd), static_cast<float*>(partial), rows, channels, ct, rpp,
+      static_cast<float*>(save_invstd), static_cast<double*>(partial), rows, channels, ct, rpp,
       row_blocks, rows_per_block, eps, momentum);
 }
 
 // The backward (one cooperative launch on `stream`): dy, x, y (mode 2, else
 // null), dx and dresidual (mode 2, else null; written) as the forward's
-// tensors; dweight and dbias (written) `channels` float32; partial as the
-// forward's; coef 3 * channels float32 scratch.
+// tensors; dweight and dbias (written) `channels` float32; partial is
+// 2 * row_blocks * channels float32 scratch; coef 3 * channels float32.
 extern "C" int batch_norm_act_backward(const void* dy, const void* x, const void* y, void* dx,
                                        void* dresidual, const void* weight, const void* bias,
                                        const void* save_mean, const void* save_invstd,

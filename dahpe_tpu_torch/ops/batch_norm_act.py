@@ -144,7 +144,7 @@ class _BatchNormAct(torch.autograd.Function):
         y = torch.empty_like(x)
         p = _plan_for(x, y) if residual is None else _plan_for(x, y, residual)
         saved = torch.empty((2, channels), dtype=torch.float32, device=x.device)
-        partial = torch.empty((p.row_blocks, 2, channels), dtype=torch.float32, device=x.device)
+        partial = torch.empty((p.row_blocks, 2, channels), dtype=torch.float64, device=x.device)
         with torch.cuda.device(x.device):
             status = _lib().batch_norm_act_forward(
                 x.data_ptr(), None if residual is None else residual.data_ptr(), y.data_ptr(),

@@ -28,9 +28,9 @@ single flag read: nothing is recorded or launched. On:
 
 :func:`count` keeps counters (the fused loop's ``captures`` and
 ``replays``) whether tracing is on or not; :func:`counters` reads them.
-Some callers count only while it is on: ``ops.batch_norm_act`` counts each
-batch norm call as ``bn_act.kernel`` or ``bn_act.plain`` (under a CUDA graph
-once, at capture), which :func:`trace` reports since the tracer went on.
+Some callers count only while it is on (``ops.batch_norm_act``, under a CUDA
+graph once, at capture); :func:`trace` reports every counter's change since
+the tracer was last turned on.
 """
 
 from __future__ import annotations
@@ -66,7 +66,6 @@ _next_call = 0
 _local = threading.local()
 _counters: dict[str, int] = {}
 _on_since: dict[str, int] = {}  # the counters when the tracer was last turned on
-BN_ACT_COUNTERS = ("bn_act.kernel", "bn_act.plain")
 _NULL = contextlib.nullcontext()
 
 
@@ -82,7 +81,7 @@ def enable(on: bool = True) -> None:
         lib.dahpe_phase_mark.restype = ctypes.c_int
         _lib = lib
     if on and not _on:
-        _on_since = dict(_counters)
+        _on_since = counters()
     _on = bool(on)
 
 
@@ -260,11 +259,10 @@ def trace(logdir: str):
     out), the device ms of each phase (``phase_ms``, zero without markers,
     None if ``broken_iterations``, the iterations whose markers are not all
     there in order, is not 0) and of kernels in none (``outside_ms``), the
-    block's ``captures`` and ``replays``, and the batch-norm calls counted
-    since the tracer was turned on (``bn_act.kernel``, ``bn_act.plain``:
-    a graph replayed in the block counted its calls at its capture) with
-    the kernels' share of them (``bn_act_kernel_share``, None without
-    calls). The block should end synchronized with the device (e.g.
+    block's ``captures`` and ``replays``, and ``since_on``: each counter
+    that moved since the tracer was last turned on, by how much (a graph
+    replayed in the block counted its calls at its capture, before the
+    block). The block should end synchronized with the device (e.g.
     by fetching a result), so its wall time covers the device work it
     queued."""
     from torch.profiler import ProfilerActivity, profile
@@ -288,16 +286,14 @@ def trace(logdir: str):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     split = split_phases(device)
     busy_us = _busy([(a, b) for _, a, b in split.kernels])
-    bn_act = {n: after.get(n, 0) - _on_since.get(n, 0) for n in BN_ACT_COUNTERS}
-    bn_calls = sum(bn_act.values())
     summary.update(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                    idle_share=(1.0 - busy_us / wall_us) if split.kernels else None,
                    kernels=len(split.kernels),
                    phase_ms=split.phases and {p: v / 1e3 for p, v in split.phases.items()},
                    outside_ms=split.outside / 1e3, broken_iterations=split.broken,
                    **{n: after.get(n, 0) - before.get(n, 0) for n in ("captures", "replays")},
-                   **bn_act,
-                   bn_act_kernel_share=bn_act["bn_act.kernel"] / bn_calls if bn_calls else None)
+                   since_on={n: v - _on_since.get(n, 0) for n, v in after.items()
+                             if v != _on_since.get(n, 0)})
     path = os.path.join(logdir, "trace.json")
     prof.export_chrome_trace(path)
     _add_span_track(path, spans)

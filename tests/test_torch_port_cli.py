@@ -170,17 +170,21 @@ def test_keep_checkpoints_and_conf_gate(roots, tmp_path):
     assert all(np.isfinite(r[k]) for r in _metrics(log) for k in ("loss_s", "loss_gf", "loss_gt"))
 
 
-def test_profile_traces_the_program_spans(roots, tmp_path):
+def test_profile_traces_the_program_spans(roots, tmp_path, capsys):
     """``--profile 2`` turns the tracer on for its iterations: the profiled
     calls' spans are a track of ``trace.json``, ``summary.json`` holds the
-    device ms of each phase and the calls' captures and replays, and the
-    tracer is off after them."""
+    device ms of each phase, the calls' captures and replays and the
+    batch-norm calls by path, the CLI prints the kernels' share of them,
+    and the tracer is off after them."""
     log = tmp_path / "logs"
     assert train_cli.cli_main(_argv(roots, log, "--device-store", "--pretrain-epochs", "0",
                                     "--epochs", "1", "-i", "1", "--profile", "2")) == 0
     summary = json.load(open(log / "trace" / "summary.json"))
     assert set(summary["phase_ms"]) == set(profiling.PHASES)
     assert summary["captures"] == summary["replays"] == 0  # one eager step a call
+    plain = summary["since_on"]["bn_act.plain"]  # the CPU: every call on the plain path
+    assert plain > 0 and "bn_act.kernel" not in summary["since_on"]
+    assert f"batch norm on the fused kernels: 0 of {plain} calls" in capsys.readouterr().out
     trace = json.load(open(log / "trace" / "trace.json"))
     names = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "program_span"]
     assert names.count("fused.call") == 2
